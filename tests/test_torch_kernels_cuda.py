@@ -1,0 +1,136 @@
+"""The CUDA blend kernels against their plain PyTorch versions.
+
+The tests marked `cuda` need the card and skip without one. This file
+imports neither JAX nor the reference package, so it also runs where only
+PyTorch is installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
+
+Tolerances: the forward and median kernels round every operation as the
+plain versions do (nvcc -fmad=false) and agree to 1e-5; the backward sums
+each slot's 256 pixel terms in another order and agrees to 1e-5 of each
+field's largest gradient. The rasterizer's gradients also pass through the
+scatter-add of the slot gather, whose atomic adds run in any order, and
+are held to 1e-3 of each field's largest gradient.
+"""
+import numpy as np
+import pytest
+import torch
+
+from lvdgs_torch.core.camera import Intrinsics
+from lvdgs_torch.ops import rasterizer as tr
+from lvdgs_torch.ops import rasterizer_cuda as rc
+from torch_parity import cuda_device, make_scene_np  # noqa: F401
+
+
+def _random_block(K, T, seed, device, ntx=8):
+    """Random depth-sorted slot lists with ragged counts (some empty, some
+    full)."""
+    g = np.random.default_rng(seed)
+    tid = np.arange(T)
+    cx = (tid % ntx) * 16 + 8.0
+    cy = (tid // ntx) * 16 + 8.0
+    tp = np.zeros((K, T, rc.NF), np.float32)
+    tp[..., 0] = cx[None] + g.normal(0, 8, (K, T))
+    tp[..., 1] = cy[None] + g.normal(0, 8, (K, T))
+    s = g.uniform(0.02, 0.3, (K, T))
+    tp[..., 2] = s
+    tp[..., 3] = g.uniform(-0.5, 0.5, (K, T)) * s
+    tp[..., 4] = s
+    tp[..., 5:8] = g.uniform(0, 1, (K, T, 3))
+    tp[..., 8] = np.sort(g.uniform(1, 10, (K, T)), axis=0)
+    tp[..., 9] = g.uniform(0.05, 1.0, (K, T))  # some reach the 0.99 clamp
+    counts = g.integers(0, K + 1, T).astype(np.int32)
+    counts[:2] = (0, K)
+    return torch.tensor(tp, device=device), torch.tensor(counts, device=device), ntx
+
+
+def _rel_close(a, b, tol):
+    scale = b.abs().amax(dim=tuple(range(b.dim() - 1)), keepdim=True) + 1e-12
+    torch.testing.assert_close(a / scale, b / scale, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,T", [(64, 24), (256, 160)])
+def test_kernels_match_plain(cuda_device, K, T):
+    tp, counts, ntx = _random_block(K, T, K + T, cuda_device)
+    acc, trans, nt = rc.blend_forward(tp, counts, ntx)
+    acc_p, trans_p, nt_p = rc.blend_forward_plain(tp, counts, ntx)
+    torch.testing.assert_close(acc, acc_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(trans, trans_p, atol=1e-5, rtol=0)
+    assert torch.equal(nt, nt_p)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
+    dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
+    dtp = rc.blend_backward(tp, counts, acc, trans, dacc, dtrans, ntx)
+    dtp_p = rc.blend_backward_plain(tp, counts, acc, trans, dacc, dtrans, ntx)
+    _rel_close(dtp, dtp_p, 1e-5)
+    dmed, opac = rc.median_depth(tp, counts, ntx)
+    dmed_p, opac_p = rc.median_depth_plain(tp, counts, ntx)
+    torch.testing.assert_close(dmed, dmed_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(opac, opac_p, atol=1e-5, rtol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_blend_autograd_on_card_matches_cpu(cuda_device):
+    tp, counts, ntx = _random_block(64, 24, 5, "cpu")
+    w = torch.randn(24, 4, rc.P, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        x = tp.detach().to(dev).requires_grad_(True)
+        acc, trans, _ = rc.blend(x, counts.to(dev), ntx)
+        ((acc * w.to(dev)).sum() + trans.sum()).backward()
+        grads[str(dev)] = x.grad.cpu()
+    _rel_close(grads[str(cuda_device)], grads["cpu"], 1e-5)
+
+
+@pytest.mark.cuda
+def test_rasterize_on_card_matches_cpu(cuda_device):
+    intr = Intrinsics(fx=80.0, fy=80.0, cx=32.0, cy=24.0, width=64, height=48)
+    cfg = tr.RenderConfig(max_per_tile=64, tile_chunk=16)
+    scene = make_scene_np(100, seed=2)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in scene.items()}
+        active = torch.ones(100, dtype=torch.bool, device=dev)
+        R, t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        out = tr.rasterize(p, active, R, t, intr, cfg)
+        ((out.image - 0.3) ** 2).mean().add(0.05 * (out.depth ** 2).mean()).backward()
+        med = tr.rasterize_median_depth(p, active, R, t, intr, cfg)
+        outs[str(dev)] = (out, {k: v.grad for k, v in p.items()}, med)
+    (o_c, g_c, m_c), (o_g, g_g, m_g) = outs["cpu"], outs[str(cuda_device)]
+    torch.testing.assert_close(o_g.image.cpu(), o_c.image, atol=1e-5, rtol=0)
+    torch.testing.assert_close(o_g.depth.cpu(), o_c.depth, atol=1e-4, rtol=0)
+    assert torch.equal(o_g.n_touched.cpu(), o_c.n_touched)
+    for k in g_c:
+        _rel_close(g_g[k].cpu(), g_c[k], 1e-3)
+    torch.testing.assert_close(m_g[0].cpu(), m_c[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
+    tp, counts, ntx = _random_block(32, 8, 3, cuda_device)
+    before = [w.launches.count for w in rc.KERNEL_WRAPPERS]
+    acc, trans, _ = rc.blend_forward(tp, counts, ntx)
+    rc.blend_backward(tp, counts, acc, trans, torch.ones_like(acc), torch.ones_like(trans), ntx)
+    rc.median_depth(tp, counts, ntx)
+    assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1, 1, 1]
+    with pytest.raises(ValueError):
+        rc.blend_forward(tp, counts.long(), ntx)
+    with pytest.raises(ValueError):
+        rc.blend_forward(tp.double(), counts, ntx)
+    with pytest.raises(ValueError):
+        rc.blend_forward(tp, counts.cpu(), ntx)
+
+
+def test_cpu_tensors_take_the_plain_version_uncounted():
+    tp, counts, ntx = _random_block(16, 8, 4, "cpu")
+    before = [w.launches.count for w in rc.KERNEL_WRAPPERS]
+    acc, trans, nt = rc.blend_forward(tp, counts, ntx)
+    acc_p, trans_p, nt_p = rc.blend_forward_plain(tp, counts, ntx)
+    assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
+    rc.median_depth(tp, counts, ntx)
+    assert [w.launches.count for w in rc.KERNEL_WRAPPERS] == before
+    with pytest.raises(ValueError, match="device"):
+        rc.blend_forward(tp.to("meta"), counts.to("meta"), ntx)
