@@ -36,37 +36,14 @@
 // traffic beyond reading tp once and writing each output once. Making this
 // faster (several slots per barrier, warp-level exits) is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int NF = 10;
-constexpr int TS = 16;
-constexpr int NPIX = TS * TS;  // threads per block
-constexpr int NWARP = NPIX / 32;
+using namespace lvdgs;
+
 constexpr int BATCH = 32;      // slots staged per shared-memory batch
 constexpr int MAX_K = 1024;    // slots per tile held by the per-slot counters
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1.0e-4f;
-
-struct SlotEval {
-  float alpha, G, dx, dy, raw;
-};
-
-// Alpha of one slot at this thread's pixel. Shared by all three kernels so
-// that the backward replays exactly the forward's transmittance chain.
-__device__ __forceinline__ SlotEval eval_slot(const float* p, float px, float py) {
-  SlotEval e;
-  e.dx = px - p[0];
-  e.dy = py - p[1];
-  const float power = -0.5f * (p[2] * e.dx * e.dx + p[4] * e.dy * e.dy) - p[3] * e.dx * e.dy;
-  e.G = expf(power);
-  e.raw = p[9] * e.G;
-  e.alpha = (power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
-  return e;
-}
 
 // Stage slots [k0, k0 + n) of tile t into shared memory (all threads).
 __device__ __forceinline__ void stage(float* sp, const float* __restrict__ tp, int k0, int n,
@@ -75,12 +52,6 @@ __device__ __forceinline__ void stage(float* sp, const float* __restrict__ tp, i
     const int s = i / NF;
     sp[i] = tp[((size_t)(k0 + s) * T + t) * NF + (i - s * NF)];
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __global__ void __launch_bounds__(NPIX)

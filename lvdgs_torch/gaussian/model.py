@@ -285,11 +285,26 @@ def reset_opacity_nonvisible(gmap: GaussianMap, visible_any: torch.Tensor,
 @torch.no_grad()
 def densify_and_prune(gmap: GaussianMap, split_eps: torch.Tensor, *, grad_threshold: float,
                       min_opacity: float, extent: float, max_screen_size: Optional[float],
-                      percent_dense: float = 0.01, opt_state: Optional[AdamState] = None) -> None:
+                      percent_dense: float = 0.01, opt_state: Optional[AdamState] = None,
+                      aux_vis: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """Clone + split + prune with 3DGS semantics, in place.
 
     `split_eps` (2, C, 3) holds the standard-normal samples of the two split
-    children (the caller draws them; tests inject the reference's)."""
+    children (the caller draws them; tests inject the reference's).
+    `aux_vis` (..., C) bool, optional, carries per-Gaussian visibility
+    columns through the reshuffle: clone and split children inherit their
+    parent's column and pruned slots are cleared, so that a visibility
+    snapshot taken before the call stays valid after it. Returned when
+    given (a new tensor; the argument is not changed)."""
+    def inherit(vis, dest):
+        # column dest[i] takes column i; unwritten candidates (dest = C)
+        # land in a column that is dropped
+        if vis is None:
+            return None
+        ext = torch.cat([vis, vis.new_zeros(*vis.shape[:-1], 1)], dim=-1)
+        ext[..., dest] = vis
+        return ext[..., :-1]
+
     grads = torch.where(gmap.grad_denom > 0,
                         gmap.grad_accum / torch.clamp(gmap.grad_denom, min=1.0),
                         torch.zeros_like(gmap.grad_accum))
@@ -304,6 +319,7 @@ def densify_and_prune(gmap: GaussianMap, split_eps: torch.Tensor, *, grad_thresh
     _write_new(gmap, dest, ok, kf_id=gmap.unique_kf_ids.clone(), **src)
     if opt_state is not None:
         zero_adam_slots(opt_state, dest, ok)
+    aux_vis = inherit(aux_vis, dest)
 
     # --- split: two children at 1/1.6 scale, parent pruned only when at
     # least one child was written (splitting at capacity keeps map mass)
@@ -323,8 +339,10 @@ def densify_and_prune(gmap: GaussianMap, split_eps: torch.Tensor, *, grad_thresh
         )
         if opt_state is not None:
             zero_adam_slots(opt_state, dest, ok)
+        aux_vis = inherit(aux_vis, dest)
         any_child_ok = any_child_ok | ok
-    prune_points(gmap, split_mask & any_child_ok)
+    split_parent_prune = split_mask & any_child_ok
+    prune_points(gmap, split_parent_prune)
 
     # --- prune by opacity / screen size / world size
     prune_mask = gmap.active & (gmap.opacities < min_opacity)
@@ -338,6 +356,9 @@ def densify_and_prune(gmap: GaussianMap, split_eps: torch.Tensor, *, grad_thresh
     gmap.grad_accum.zero_()
     gmap.grad_denom.zero_()
     gmap.max_radii2d.zero_()
+    if aux_vis is not None:
+        return aux_vis & ~split_parent_prune & ~prune_mask
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Differentiable tile-based 3D Gaussian rasterizer, dense path (PyTorch).
+"""Differentiable tile-based 3D Gaussian rasterizer (PyTorch).
 
-Port of the dense path of ``lvdgs_tpu/ops/rasterizer.py``:
+Port of ``lvdgs_tpu/ops/rasterizer.py``:
 
 1. **Project** (EWA splatting): world -> camera -> pixel means, 2D
    covariance through the local affine Jacobian, conic and radius.
@@ -13,6 +13,14 @@ Port of the dense path of ``lvdgs_tpu/ops/rasterizer.py``:
    and blended front to back by the CUDA kernels of ``rasterizer_cuda``
    (their plain versions on the CPU). The gather's autograd transpose is the
    per-Gaussian scatter-add; the blend's backward is a kernel too.
+4. **Packed** (``cfg.use_packed``): the dense slot lists are repacked into
+   chunks of KC = 32 slots per group of ``tile_group`` tiles, sized by the
+   group's deepest tile under a static budget of ``slot_budget_per_tile``
+   slots per tile (``pack_bins``), and blended by the packed kernels. With
+   ``saturation_feedback`` a gradient-free full-depth probe first caps each
+   saturated tile at its useful depth and groups tiles of similar depth, so
+   the budget goes to the tiles that need it. Tracking renders each rebin
+   period linearised in the pose (``pose_lin_gather``, ``rasterize_lin``).
 
 Gradients flow to the Gaussian parameters, to (R, t) and to ``vs_offset``,
 a (C, 2) zero tensor in NDC units whose gradient is the screen-space mean
@@ -28,7 +36,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
-from .rasterizer_cuda import blend, median_depth
+from .rasterizer_cuda import KC, P, blend, blend_packed, median_depth, packed_blend_forward
 
 INF = 3.0e38
 NEAR_PLANE = 0.2  # near-cull distance
@@ -39,7 +47,7 @@ _INT_CLAMP = float(2**30)  # keeps float->int32 tile indices in range
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rasterizer configuration (dense path)."""
+    """Static rasterizer configuration."""
 
     tile_size: int = 16
     max_per_tile: int = 256
@@ -49,10 +57,29 @@ class RenderConfig:
     # fine tiles pre-select max_per_coarse front-most candidates
     coarse_factor: int = 8
     max_per_coarse: int = 2048
+    # tiles per group of the packed layout
+    tile_group: int = 16
+    # packed (group-CSR) slot lists: chunks of KC slots per tile group,
+    # sized by the group's deepest tile under a static budget of
+    # slot_budget_per_tile slots per tile (waterfill cap where it binds);
+    # the same slots in the same order as the dense lists where it does not
+    use_packed: bool = False
+    slot_budget_per_tile: int = 128
+    # saturation feedback: a gradient-free full-depth probe caps each
+    # saturated tile at its useful depth and the repack hands the released
+    # budget to deep unsaturated tiles
+    saturation_feedback: bool = False
+    # per-pixel error tolerance of the feedback cap (one 8-bit LSB)
+    feedback_tol: float = 1.0 / 255.0
+    # bf16 weight math in the packed kernels: not ported
+    blend_bf16: bool = False
 
     def __post_init__(self):
         if self.tile_size != 16:
             raise ValueError("the blend kernels take 16x16 tiles (one thread per pixel)")
+        if self.blend_bf16:
+            raise NotImplementedError(
+                "lvdgs_torch does not carry the bf16 packed blend (ROADMAP B4-bf16, B5-bf16) yet")
 
     def grid(self, intr: Intrinsics):
         ts = self.tile_size
@@ -263,6 +290,19 @@ def bin_gaussians(
     return tile_idx, slot_valid
 
 
+def _fields(mean2d, conic, colors, opacities, depth) -> torch.Tensor:
+    """(C + 1, 10) per-Gaussian blend fields; row C is the zero sentinel,
+    whose opacity 0 renders at alpha 0."""
+    fields = torch.cat([mean2d, conic, colors, depth[:, None], opacities[:, None]], dim=1)
+    return torch.cat([fields, fields.new_zeros(1, fields.shape[1])], dim=0)
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for an index array of any shape, through index_select (see
+    _tile_params)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).view(*idx.shape, *table.shape[1:])
+
+
 def _tile_params(tile_idx, mean2d, conic, colors, opacities, depth):
     """Gather per-(slot, tile) fields into the kernels' (K, T, 10) layout
     (index C is a zero sentinel row). Differentiable: its transpose is the
@@ -274,11 +314,7 @@ def _tile_params(tile_idx, mean2d, conic, colors, opacities, depth):
     sentinel, so that run is most of the (K, T) block and took ~98 ms per
     backward at 1226x370 on the H100 (PERF.md)."""
     C = mean2d.shape[0]
-    K, T = tile_idx.shape[1], tile_idx.shape[0]
-    fields = torch.cat([mean2d, conic, colors, depth[:, None], opacities[:, None]], dim=1)
-    fields = torch.cat([fields, fields.new_zeros(1, fields.shape[1])], dim=0)
-    idx = tile_idx.clamp(max=C).T.reshape(-1)
-    return torch.index_select(fields, 0, idx).view(K, T, fields.shape[1])
+    return _gather_rows(_fields(mean2d, conic, colors, opacities, depth), tile_idx.clamp(max=C).T)
 
 
 def _blend_dense(tile_idx, slot_valid, mean2d, conic, colors, opacities, depth, bg, *, ntx,
@@ -298,6 +334,220 @@ def _blend_dense(tile_idx, slot_valid, mean2d, conic, colors, opacities, depth, 
     else:
         n_touched = torch.zeros(C, dtype=torch.int32, device=nt.device)
     return img, acc[:, 3, :], 1.0 - trans, n_touched
+
+
+# ---------------------------------------------------------------------------
+# packed (group-CSR) slot lists
+
+
+class PackedBins(NamedTuple):
+    """Group-CSR tile assignment (RenderConfig.use_packed).
+
+    gid:    (NB, KC, TG) int64 Gaussian id per (chunk, slot, lane), C = empty
+            (the zero sentinel row, alpha 0).
+    cg:     (NB,) int32 tile group of each chunk (n_groups = padding).
+    k0:     (NB,) int32 slot offset of the chunk in its group's lists.
+    kalloc: (T_pad,) int32 slots allocated per tile, in tile order, after
+            the waterfill cap and any tile cap (saturation feedback).
+    tids:   (NB, TG) int32 tile id per (chunk, lane); with sort_by_depth a
+            group holds tiles of similar depth, not a run of tiles.
+    inv:    (T_pad,) int32 position of tile t in the group-major layout.
+    """
+
+    gid: torch.Tensor
+    cg: torch.Tensor
+    k0: torch.Tensor
+    kalloc: torch.Tensor
+    tids: torch.Tensor
+    inv: torch.Tensor
+
+
+@torch.no_grad()
+def pack_bins(tile_idx: torch.Tensor, slot_valid: torch.Tensor, C: int, *, tile_group: int,
+              slot_budget_per_tile: int, tile_cap: Optional[torch.Tensor] = None,
+              sort_by_depth: bool = False) -> PackedBins:
+    """Pack dense (T, K) slot lists into ragged per-group chunk lists.
+
+    Each group of TG tiles gets ceil(kmax_g / KC) chunks, kmax_g its deepest
+    tile's count, capped by the waterfill threshold theta: the largest
+    per-tile depth whose chunk total fits the static budget NB = T_pad *
+    slot_budget_per_tile / (KC * TG). Where the budget does not bind, the
+    packed lists hold the dense lists' slots in the same order. `tile_cap`
+    (T,) bounds each tile's depth (saturation feedback); `sort_by_depth`
+    groups tiles by descending count, so that a group's deepest tile is
+    close to its others. Runs on the device without a host sync: the
+    waterfill is a fixed number of bisection steps."""
+    T, K = tile_idx.shape
+    TG = tile_group
+    G = -(-T // TG)
+    T_pad = G * TG
+    if slot_budget_per_tile < KC:
+        raise ValueError(f"the budget must cover one chunk of {KC} slots per group")
+    NB = (T_pad * slot_budget_per_tile) // (KC * TG)
+    dev = tile_idx.device
+    i32 = torch.int32
+
+    counts = slot_valid.sum(dim=1, dtype=i32)
+    if tile_cap is not None:
+        counts = torch.minimum(counts, torch.clamp(tile_cap.to(i32), min=0))
+    if T_pad != T:
+        counts = torch.cat([counts, counts.new_zeros(T_pad - T)])
+        tile_idx = torch.cat([tile_idx, tile_idx.new_full((T_pad - T, K), C)])
+    if sort_by_depth:
+        perm = torch.argsort(-counts, stable=True)
+    else:
+        perm = torch.arange(T_pad, device=dev)
+    counts_s = counts[perm]
+    gmax = counts_s.reshape(G, TG).max(dim=1).values
+
+    def nchunks(theta):
+        return torch.clamp(-(-torch.minimum(gmax, theta) // KC), min=1)
+
+    # waterfill: the largest per-tile depth cap whose chunk total fits NB
+    lo = torch.full((), KC, dtype=i32, device=dev)
+    hi = torch.full((), K, dtype=i32, device=dev)
+    for _ in range(max(int(math.ceil(math.log2(max(K - KC, 1) + 1))), 1)):
+        mid = (lo + hi + 1) // 2
+        ok = nchunks(mid).sum() <= NB
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid - 1)
+    theta = lo
+
+    kalloc_s = torch.minimum(counts_s, theta)
+    nch = nchunks(theta)
+    cum = torch.cumsum(nch, 0)
+    start_g = cum - nch
+    bids = torch.arange(NB, device=dev, dtype=cum.dtype)
+    cg = torch.searchsorted(cum, bids, right=True)  # G for padding chunks
+    safe_g = cg.clamp(max=G - 1)
+    k0 = torch.where(cg < G, (bids - start_g[safe_g]) * KC, KC)
+    pos_of = safe_g[:, None] * TG + torch.arange(TG, device=dev)[None]  # (NB, TG)
+    tids = perm[pos_of]
+    k_of = k0[:, None] + torch.arange(KC, device=dev)[None]  # (NB, KC)
+    valid = (cg < G)[:, None, None] & (k_of[:, :, None] < kalloc_s[pos_of][:, None, :])
+    gid = torch.where(valid, tile_idx[tids[:, None, :], k_of.clamp(max=K - 1)[:, :, None]], C)
+    inv = torch.argsort(perm, stable=True)
+    return PackedBins(gid=gid, cg=cg.to(i32), k0=k0.to(i32), kalloc=kalloc_s[inv].to(i32),
+                      tids=tids.to(i32), inv=inv.to(i32))
+
+
+@torch.no_grad()
+def saturation_caps(pbins: PackedBins, wmax: torch.Tensor, T: int, *, tile_group: int,
+                    max_per_tile: int, tol: float = 1.0 / 255.0) -> torch.Tensor:
+    """Per-tile useful blend depth (T,) int32 from a probe render's per-slot
+    max blend weights `wmax` (NB, KC, TG), in 1/65536 units.
+
+    Each tile's chunk weights are suffix-summed back to front at chunk
+    granularity, and the tile is capped after the last chunk whose remaining
+    total exceeds `tol`, so that what the cap drops changes no pixel by more
+    than about `tol`. Tiles whose tail still carries weight, or whose cap
+    would not cut their allocation, get max_per_tile (uncapped)."""
+    TG = tile_group
+    T_pad = pbins.kalloc.shape[0]
+    n_groups = T_pad // TG
+    MC = max(max_per_tile // KC, 1)  # chunk ordinals per tile
+    chunk_w = wmax.to(torch.float32).sum(dim=1) * (1.0 / 65536.0)  # (NB, TG)
+    ord_of = torch.clamp(pbins.k0 // KC, max=MC - 1).long()
+    t_of = torch.where(pbins.cg[:, None] < n_groups, pbins.tids, T_pad).long()
+    flat_idx = (t_of * MC + ord_of[:, None]).reshape(-1)
+    dense = torch.zeros((T_pad + 1) * MC, dtype=torch.float32, device=wmax.device).index_add_(
+        0, flat_idx, chunk_w.reshape(-1)).reshape(T_pad + 1, MC)[:T]
+    suffix = torch.flip(torch.cumsum(torch.flip(dense, [1]), dim=1), [1])
+    keep = suffix > tol
+    last = torch.argmax(torch.flip(keep, [1]).to(torch.int32), dim=1)
+    cap = KC * (MC - last) * keep.any(dim=1)
+    return torch.where(cap < pbins.kalloc[:T], cap, max_per_tile).to(torch.int32)
+
+
+def _blend_inputs(params, active):
+    """(colours, active-gated opacities) of the map."""
+    colors = torch.clamp(0.5 + SH_C0 * params["features_dc"], 0.0, 1.0)
+    opac = torch.where(active, torch.sigmoid(params["logit_opacities"]),
+                       torch.zeros_like(params["logit_opacities"]))
+    return colors, opac
+
+
+def _goff(device) -> torch.Tensor:
+    """The packed kernels' tile-id offset: 0 on one device."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _packed_to_tiles(acc, trans, inv, T: int, bg):
+    """Group-major kernel rows -> per-tile (image (T, P, 3), depth (T, P),
+    alpha (T, P)), through the pack's inverse permutation."""
+    G1, _, TG, _ = acc.shape
+    G = G1 - 1
+    take = inv[:T].long()
+    acc_t = acc[:G].transpose(1, 2).reshape(G * TG, 4, P).index_select(0, take)
+    trans_t = trans[:G].reshape(G * TG, P).index_select(0, take)
+    img = acc_t[:, :3, :].transpose(1, 2) + trans_t[..., None] * bg[None, None, :]
+    return img, acc_t[:, 3, :], 1.0 - trans_t
+
+
+def _n_touched_packed(gid, nt, C: int) -> torch.Tensor:
+    """Per-Gaussian touched-pixel counts; the sentinel C sums into a row
+    that is dropped."""
+    return torch.zeros(C + 1, dtype=torch.int32, device=nt.device).index_add_(
+        0, gid.reshape(-1), nt.reshape(-1))[:C]
+
+
+def _blend_packed(pbins: PackedBins, mean2d, conic, colors, opacities, depth, bg, *, ntx, nty,
+                  tile_group, need_n_touched=True):
+    """Packed-kernel blending path: gathers only the budgeted slots
+    (differentiable, its transpose the per-Gaussian scatter-add) into
+    (NB, KC, TG, 10) chunks for the packed kernels."""
+    C = mean2d.shape[0]
+    T = ntx * nty
+    G = -(-T // tile_group)
+    tp = _gather_rows(_fields(mean2d, conic, colors, opacities, depth), pbins.gid)
+    acc, trans, nt = blend_packed(tp, pbins.cg, pbins.k0, _goff(tp.device), pbins.tids, G, ntx,
+                                  need_n_touched)
+    img, depth_t, alpha_t = _packed_to_tiles(acc, trans, pbins.inv, T, bg)
+    if need_n_touched:
+        n_touched = _n_touched_packed(pbins.gid, nt, C)
+    else:
+        n_touched = torch.zeros(C, dtype=torch.int32, device=nt.device)
+    return img, depth_t, alpha_t, n_touched
+
+
+@torch.no_grad()
+def probe_saturation_caps(tile_idx, slot_valid, proj, params, active, cfg: RenderConfig, ntx: int,
+                          nty: int, want_touched: bool = False):
+    """Full-depth gradient-free probe blend -> per-tile useful-depth caps
+    (see saturation_caps). With `want_touched` also a (C,) bool of
+    per-Gaussian visibility (a blend weight > 0 at some pixel of the
+    full-depth blend): the exact n_touched > 0 that a budget-capped render
+    cannot give, since contributors it drops read as untouched."""
+    C = params["means"].shape[0]
+    T = ntx * nty
+    pb = pack_bins(tile_idx, slot_valid, C, tile_group=cfg.tile_group,
+                   slot_budget_per_tile=cfg.max_per_tile)
+    colors, opac = _blend_inputs(params, active)
+    tp = _gather_rows(_fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"]), pb.gid)
+    _acc, _trans, wmax = packed_blend_forward(tp, pb.cg, pb.k0, _goff(tp.device), pb.tids,
+                                              -(-T // cfg.tile_group), ntx, probe_wmax=True)
+    caps = saturation_caps(pb, wmax, T, tile_group=cfg.tile_group, max_per_tile=cfg.max_per_tile,
+                           tol=cfg.feedback_tol)
+    if not want_touched:
+        return caps
+    return caps, _n_touched_packed(pb.gid, (wmax > 0).to(torch.int32), C) > 0
+
+
+@torch.no_grad()
+def _pack_for_cfg(tile_idx, slot_valid, proj, params, active, cfg: RenderConfig, ntx: int,
+                  nty: int, tile_cap=None) -> PackedBins:
+    """Pack dense slot lists as the config says: a plain budgeted pack, or
+    with saturation_feedback a probe-capped, depth-sorted pack. `tile_cap`
+    supplies caps measured before (tracking probes once and reuses them:
+    the map is frozen there)."""
+    C = params["means"].shape[0]
+    if not cfg.saturation_feedback:
+        return pack_bins(tile_idx, slot_valid, C, tile_group=cfg.tile_group,
+                         slot_budget_per_tile=cfg.slot_budget_per_tile)
+    if tile_cap is None:
+        tile_cap = probe_saturation_caps(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty)
+    return pack_bins(tile_idx, slot_valid, C, tile_group=cfg.tile_group,
+                     slot_budget_per_tile=cfg.slot_budget_per_tile, tile_cap=tile_cap,
+                     sort_by_depth=True)
 
 
 def _tiles_to_image(tiles: torch.Tensor, ntx: int, nty: int, ts: int, H: int, W: int):
@@ -322,14 +572,154 @@ def _bin_for(proj, cfg: RenderConfig, ntx: int, nty: int, margin: float = 0.0, m
 
 @torch.no_grad()
 def prepare_bins(params, active, R, t, intr: Intrinsics, cfg: RenderConfig, margin: float = 0.0):
-    """Project and bin only (no blending) -> (tile_idx, slot_valid), for
-    reuse across several optimisation steps. `margin` keeps the assignment
-    valid under small pose changes (see bin_gaussians)."""
+    """Project and bin only (no blending) -> (tile_idx, slot_valid), or
+    PackedBins under cfg.use_packed, for reuse across several optimisation
+    steps. `margin` keeps the assignment valid under small pose changes
+    (see bin_gaussians)."""
     ntx, nty = cfg.grid(intr)
     proj = project_gaussians(
         params["means"], params["quats"], params["log_scales"], active, R, t, intr
     )
-    return _bin_for(proj, cfg, ntx, nty, margin)
+    bins = _bin_for(proj, cfg, ntx, nty, margin)
+    if cfg.use_packed:
+        return _pack_for_cfg(*bins, proj, params, active, cfg, ntx, nty)
+    return bins
+
+
+@torch.no_grad()
+def prepare_bins_with_touched(params, active, R, t, intr: Intrinsics, cfg: RenderConfig,
+                              margin: float = 0.0):
+    """prepare_bins for the mapping loop under saturation feedback: returns
+    (packed bins, touched) with `touched` the full-depth probe's (C,)
+    per-Gaussian visibility, which the loop's n_touched > 0 consumers
+    (covisibility, the opacity reset) read instead of capped renders."""
+    if not (cfg.use_packed and cfg.saturation_feedback):
+        raise ValueError("prepare_bins_with_touched needs use_packed and saturation_feedback")
+    ntx, nty = cfg.grid(intr)
+    proj = project_gaussians(
+        params["means"], params["quats"], params["log_scales"], active, R, t, intr
+    )
+    tile_idx, slot_valid = _bin_for(proj, cfg, ntx, nty, margin)
+    caps, touched = probe_saturation_caps(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty,
+                                          want_touched=True)
+    return _pack_for_cfg(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty,
+                         tile_cap=caps), touched
+
+
+@torch.no_grad()
+def prepare_bins_with_caps(params, active, R, t, intr: Intrinsics, cfg: RenderConfig,
+                           margin: float, caps: Optional[torch.Tensor]):
+    """prepare_bins with carried saturation caps (the tracking loop): the
+    probe runs only when `caps` is None, else the caps measured before are
+    reused. Returns (bins, caps'). The caller decides on the host when to
+    probe again (the reference's caps[0] < 0 test, which would be a device
+    read here)."""
+    ntx, nty = cfg.grid(intr)
+    proj = project_gaussians(
+        params["means"], params["quats"], params["log_scales"], active, R, t, intr
+    )
+    tile_idx, slot_valid = _bin_for(proj, cfg, ntx, nty, margin)
+    if not cfg.use_packed:
+        return (tile_idx, slot_valid), caps
+    if not cfg.saturation_feedback:
+        return _pack_for_cfg(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty), caps
+    if caps is None:
+        caps = probe_saturation_caps(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty)
+    return _pack_for_cfg(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty,
+                         tile_cap=caps), caps
+
+
+def _fields_at(params, active, R, t, intr: Intrinsics, tau):
+    """(C + 1, 10) blend fields from pose exp(tau) @ [R | t], and the
+    projection."""
+    colors, opac = _blend_inputs(params, active)
+    Rn, Tn = lie.apply_delta(R, t, tau)
+    proj = project_gaussians(params["means"], params["quats"], params["log_scales"], active, Rn, Tn,
+                             intr)
+    return _fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"]), proj
+
+
+def _fields_and_jacobian(params, active, R, t, intr: Intrinsics, tau):
+    """((C + 1, 10, 7) fields at tau with their se(3) Jacobian columns, the
+    projection at tau); the Jacobian is six forward-mode derivatives."""
+    params = {k: v.detach() for k, v in params.items()}
+    tau = tau.detach()
+    with torch.no_grad():
+        fields0, proj0 = _fields_at(params, active, R, t, intr, tau)
+    J = torch.func.jacfwd(lambda d: _fields_at(params, active, R, t, intr, tau + d)[0])(
+        torch.zeros(6, dtype=torch.float32, device=tau.device))
+    return torch.cat([fields0[:, :, None], J.detach()], dim=2), proj0
+
+
+def pose_lin_gather(params, active, R, t, intr: Intrinsics, cfg: RenderConfig, bins: PackedBins):
+    """Gather per-row (field value, d field / d tau) at the linearisation
+    pose -> (tpj (NB, KC, TG, 10, 7), projection). One widened gather; the
+    Jacobian is computed once per call, so tracking calls this once per
+    rebin period (period-linearised tracking)."""
+    FJ, proj0 = _fields_and_jacobian(params, active, R, t, intr,
+                                     torch.zeros(6, dtype=torch.float32, device=R.device))
+    return _gather_rows(FJ, bins.gid), proj0
+
+
+def _background(cfg: RenderConfig, device) -> torch.Tensor:
+    return torch.full((3,), 1.0 if cfg.white_background else 0.0, dtype=torch.float32,
+                      device=device)
+
+
+def _render_output(img_t, depth_t, alpha_t, intr: Intrinsics, cfg: RenderConfig, radii=None,
+                   visibility=None, n_touched=None) -> RenderOutput:
+    """Per-tile (image (T, P, 3), depth (T, P), alpha (T, P)) -> the
+    (C, H, W) render."""
+    ntx, nty = cfg.grid(intr)
+    H, W, ts = intr.height, intr.width, cfg.tile_size
+    return RenderOutput(
+        image=_tiles_to_image(img_t, ntx, nty, ts, H, W).permute(2, 0, 1),
+        depth=_tiles_to_image(depth_t, ntx, nty, ts, H, W)[None],
+        opacity=_tiles_to_image(alpha_t, ntx, nty, ts, H, W)[None],
+        radii=radii, visibility_filter=visibility, n_touched=n_touched,
+    )
+
+
+def _linearised_tp(tpj, dtau):
+    """Per-row fields at pose delta dtau: value + Jacobian . dtau."""
+    return tpj[..., 0] + torch.einsum("...fd,d->...f", tpj[..., 1:], dtau)
+
+
+def rasterize_lin(tpj, dtau, intr: Intrinsics, cfg: RenderConfig, bins: PackedBins) -> RenderOutput:
+    """Blend the pose-linearised per-row fields (from pose_lin_gather) at
+    pose delta `dtau` (differentiable). Each call is row-local glue and the
+    two packed kernels: no projection, gather or scatter. Exact at dtau = 0,
+    first-order accurate away from it. radii, visibility_filter and
+    n_touched are None."""
+    ntx, nty = cfg.grid(intr)
+    tp = _linearised_tp(tpj, dtau)
+    acc, trans, _nt = blend_packed(tp, bins.cg, bins.k0, _goff(tp.device), bins.tids,
+                                   -(-ntx * nty // cfg.tile_group), ntx, False)
+    return _render_output(*_packed_to_tiles(acc, trans, bins.inv, ntx * nty,
+                                            _background(cfg, tp.device)), intr, cfg)
+
+
+def rasterize_pose_lin(params, active, R, t, tau, intr: Intrinsics, cfg: RenderConfig,
+                       bins: PackedBins, need_n_touched: bool = False) -> RenderOutput:
+    """Packed render at pose exp(tau) @ [R | t], with tau the only
+    differentiable input: equal to `rasterize` at that pose in value and in
+    tau gradient, but the backward contracts the kernel's per-row field
+    gradients with pre-gathered per-row pose Jacobians instead of
+    scatter-adding them to the Gaussians and transposing the projection.
+    The map is a constant here (tracking's contract)."""
+    ntx, nty = cfg.grid(intr)
+    C = params["means"].shape[0]
+    FJ, proj0 = _fields_and_jacobian(params, active, R, t, intr, tau)
+    tpj = _gather_rows(FJ, bins.gid)
+    tp = _linearised_tp(tpj, tau - tau.detach())
+    acc, trans, nt = blend_packed(tp, bins.cg, bins.k0, _goff(tp.device), bins.tids,
+                                  -(-ntx * nty // cfg.tile_group), ntx, need_n_touched)
+    n_touched = (_n_touched_packed(bins.gid, nt, C) if need_n_touched
+                 else torch.zeros(C, dtype=torch.int32, device=nt.device))
+    return _render_output(*_packed_to_tiles(acc, trans, bins.inv, ntx * nty,
+                                            _background(cfg, tp.device)), intr, cfg,
+                          radii=proj0["radius"].detach(), visibility=proj0["valid"].detach(),
+                          n_touched=n_touched)
 
 
 def rasterize(
@@ -345,7 +735,8 @@ def rasterize(
 ) -> RenderOutput:
     """Differentiable rasterization of ``params`` (means, features_dc,
     log_scales, quats, logit_opacities) from pose (R, t). `bins` (from
-    prepare_bins) reuses a precomputed tile assignment."""
+    prepare_bins, dense or packed) reuses a precomputed tile assignment;
+    without it the config's path bins (and packs) afresh."""
     ntx, nty = cfg.grid(intr)
     proj = project_gaussians(
         params["means"], params["quats"], params["log_scales"], active, R, t, intr
@@ -355,29 +746,30 @@ def rasterize(
         mean2d = mean2d + torch.stack(
             [vs_offset[:, 0] * (intr.width * 0.5), vs_offset[:, 1] * (intr.height * 0.5)], dim=-1
         )
-    colors = torch.clamp(0.5 + SH_C0 * params["features_dc"], 0.0, 1.0)
-    # active-gated so stale bins can never resurrect an inactive slot
-    opac = torch.where(active, torch.sigmoid(params["logit_opacities"]),
-                       torch.zeros_like(params["logit_opacities"]))
+    # opacities active-gated so stale bins can never resurrect an inactive slot
+    colors, opac = _blend_inputs(params, active)
+    packed = None
     if bins is None:
         tile_idx, slot_valid = _bin_for(proj, cfg, ntx, nty, mean2d=mean2d)
+        if cfg.use_packed:
+            packed = _pack_for_cfg(tile_idx, slot_valid, proj, params, active, cfg, ntx, nty)
+    elif isinstance(bins, PackedBins):
+        packed = bins
     else:
         tile_idx, slot_valid = bins
-    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, dtype=torch.float32,
-                    device=mean2d.device)
-    img_t, depth_t, alpha_t, n_touched = _blend_dense(
-        tile_idx, slot_valid, mean2d, proj["conic"], colors, opac, proj["depth"], bg,
-        ntx=ntx, need_n_touched=need_n_touched,
-    )
-    H, W, ts = intr.height, intr.width, cfg.tile_size
-    return RenderOutput(
-        image=_tiles_to_image(img_t, ntx, nty, ts, H, W).permute(2, 0, 1),
-        depth=_tiles_to_image(depth_t, ntx, nty, ts, H, W)[None],
-        opacity=_tiles_to_image(alpha_t, ntx, nty, ts, H, W)[None],
-        radii=proj["radius"].detach(),
-        visibility_filter=proj["valid"],
-        n_touched=n_touched,
-    )
+    bg = _background(cfg, mean2d.device)
+    if packed is not None:
+        img_t, depth_t, alpha_t, n_touched = _blend_packed(
+            packed, mean2d, proj["conic"], colors, opac, proj["depth"], bg, ntx=ntx, nty=nty,
+            tile_group=cfg.tile_group, need_n_touched=need_n_touched,
+        )
+    else:
+        img_t, depth_t, alpha_t, n_touched = _blend_dense(
+            tile_idx, slot_valid, mean2d, proj["conic"], colors, opac, proj["depth"], bg,
+            ntx=ntx, need_n_touched=need_n_touched,
+        )
+    return _render_output(img_t, depth_t, alpha_t, intr, cfg, radii=proj["radius"].detach(),
+                          visibility=proj["valid"], n_touched=n_touched)
 
 
 @torch.no_grad()
@@ -393,8 +785,7 @@ def rasterize_median_depth(params, active, R, t, intr: Intrinsics, cfg: RenderCo
     proj = project_gaussians(
         params["means"], params["quats"], params["log_scales"], active, R, t, intr
     )
-    opac = torch.where(active, torch.sigmoid(params["logit_opacities"]),
-                       torch.zeros_like(params["logit_opacities"]))
+    _colors, opac = _blend_inputs(params, active)
     tile_idx, slot_valid = _bin_for(proj, cfg, ntx, nty)
     C = proj["mean2d"].shape[0]
     colors = torch.zeros((C, 3), dtype=torch.float32, device=opac.device)  # unused

@@ -1,28 +1,37 @@
 """Hand-written CUDA kernels of the tile blend, their plain PyTorch
-versions, and the autograd Function that joins forward and backward.
+versions, and the autograd Functions that join forward and backward.
 
-Three kernels live in ``lvdgs_torch/csrc/blend.cu``; each replaces one
-Pallas TPU kernel of ``lvdgs_tpu/ops/rasterizer_pallas.py``:
+Five kernels, each replacing one Pallas TPU kernel of
+``lvdgs_tpu/ops/rasterizer_pallas.py``. In ``lvdgs_torch/csrc/blend.cu``:
 
 - ``blend_forward``  <- ``_make_fwd_kernel`` (front-to-back blend),
 - ``blend_backward`` <- ``_make_bwd_kernel`` (its VJP),
-- ``median_depth``   <- ``_make_median_kernel`` (transmittance-median depth).
+- ``median_depth``   <- ``_make_median_kernel`` (transmittance-median depth);
 
-Layouts are those of the Pallas kernels: tile params ``tp`` are (K, T, 10)
-float32 with fields [mean_x, mean_y, conic_a, conic_b, conic_c, r, g, b,
-depth, opacity], front slot first; ``counts`` (T,) int32 holds the valid
-prefix length of each tile's slot list; pixels are the 256 pixels of a
-16x16 tile, row-major.
+in ``lvdgs_torch/csrc/blend_packed.cu`` (float32 variants):
+
+- ``packed_blend_forward``  <- ``_make_packed_fwd_kernel`` (the blend over
+  group-CSR chunk lists; with ``probe_wmax`` the saturation-feedback probe),
+- ``packed_blend_backward`` <- ``_make_packed_bwd_kernel`` (its VJP).
+
+Layouts are those of the Pallas kernels: dense tile params ``tp`` are
+(K, T, 10) float32 with fields [mean_x, mean_y, conic_a, conic_b, conic_c,
+r, g, b, depth, opacity], front slot first; ``counts`` (T,) int32 holds the
+valid prefix length of each tile's slot list; pixels are the 256 pixels of a
+16x16 tile, row-major. Packed params are (NB, KC, TG, 10): chunk b holds
+slots [k0[b], k0[b] + KC) of the TG tiles of group cg[b] (see
+``packed_blend_forward``).
 
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; any other device raises. There is no
 fallback from a CUDA tensor to the plain version.
 
 Stop rule, shared by every kernel and its plain version: a tile marches its
-slots in order and stops before slot k once k reaches its count or no pixel
-of the tile has transmittance above the threshold (T_EPS for the blend,
-0.5 for the median). The Pallas kernels test the same condition per group
-of ``tile_group`` tiles and every 4 slots, so after a pixel saturates they
+slots in order and stops before slot k once k reaches its count (packed:
+its group's last chunk) or no pixel of the tile has transmittance above the
+threshold (T_EPS for the blend, 0.5 for the median). The Pallas kernels
+test the same condition per group of ``tile_group`` tiles and every 4 slots
+(packed: per group and chunk of KC slots), so after a pixel saturates they
 may multiply its transmittance by a few more slots than this rule does.
 Contributions are identical (a pixel at T <= T_EPS contributes nothing);
 the final transmittance of saturated pixels and the backward's
@@ -39,6 +48,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -50,8 +60,11 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1.0e-4
 MAX_K = 1024  # slots per tile the kernels' shared-memory counters hold
+KC = 32  # slots per chunk of the packed layout
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "blend.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# one shared library per source, built by one nvcc each, all at once
+_SOURCES = ("blend", "blend_packed")
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,59 +108,81 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(fmad: bool = False) -> Path:
-    """Compile blend.cu into a plain-C shared library under
-    ``lvdgs_torch/_build/<hash of source and flags>/`` unless it is there
-    already. Returns the library's path.
+def build_libraries(fmad: bool = False) -> dict:
+    """Compile each source of ``lvdgs_torch/csrc`` into its own plain-C
+    shared library under ``lvdgs_torch/_build/<hash of the sources and
+    flags>/`` unless it is there already; the nvcc processes run at the same
+    time. Returns {source name: library path}.
 
     The kernels are built with ``-fmad=false``: no multiply-add
     contraction, so they round every operation as the plain PyTorch
     versions do (one kernel per op). Their alpha and stop-rule gates are
     hard thresholds, where one rounding step can switch a whole slot's term
-    on or off; with the same rounding, forward and median reproduce the
-    plain versions bit for bit. ``fmad=True`` builds with nvcc's default
-    contraction; chip_smoke.py times that build against this one."""
+    on or off; with the same rounding, the forward kernels and the median
+    reproduce the plain versions bit for bit. ``fmad=True`` builds with
+    nvcc's default contraction; chip_smoke.py times that build against this
+    one."""
     flags = [*_NVCC_FLAGS, f"-fmad={'true' if fmad else 'false'}"]
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / key
-    lib = out_dir / "libblend.so"
-    if lib.exists():
-        return lib
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in sorted(f for f in _CSRC.iterdir() if f.suffix in (".cu", ".cuh")):
+        h.update(f.name.encode() + f.read_bytes())
+    out_dir = _BUILD_ROOT / h.hexdigest()[:16]
+    libs = {name: out_dir / f"lib{name}.so" for name in _SOURCES}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libblend.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    procs = []
+    for name in todo:
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return libs
 
 
 _LOAD_LOCK = threading.Lock()
 
 
 @functools.cache
-def _load(fmad: bool) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(fmad)))
+def _load(fmad: bool) -> types.SimpleNamespace:
+    libs = {name: ctypes.CDLL(str(path)) for name, path in build_libraries(fmad).items()}
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lvdgs_blend_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.lvdgs_blend_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-    lib.lvdgs_median_depth.argtypes = [p, p, p, p, i, i, i, p]
-    for fn in (lib.lvdgs_blend_fwd, lib.lvdgs_blend_bwd, lib.lvdgs_median_depth):
+    argtypes = {
+        ("blend", "lvdgs_blend_fwd"): [p, p, p, p, p, i, i, i, p],
+        ("blend", "lvdgs_blend_bwd"): [p, p, p, p, p, p, p, i, i, i, p],
+        ("blend", "lvdgs_median_depth"): [p, p, p, p, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_fwd"): [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_bwd"): [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+    }
+    fns = {}
+    for (lib, name), types_ in argtypes.items():
+        fn = getattr(libs[lib], name)
+        fn.argtypes = types_
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(libraries=libs, **fns)
 
 
-def _library(fmad: bool = False) -> ctypes.CDLL:
-    """The kernel library, built and loaded once (the dataset's prefetch
-    thread may ask for it at the same time as the main thread)."""
+def _library(fmad: bool = False) -> types.SimpleNamespace:
+    """The kernel libraries' C functions, built and loaded once (the
+    dataset's prefetch thread may ask for them at the same time as the main
+    thread)."""
     with _LOAD_LOCK:
         return _load(fmad)
 
 
 def load_kernels() -> float:
-    """Build (if needed) and load the kernel library; returns seconds."""
+    """Build (if needed) and load the kernel libraries; returns seconds."""
     t0 = time.perf_counter()
     _library()
     return time.perf_counter() - t0
@@ -175,6 +210,25 @@ def _check_inputs(tp: torch.Tensor, counts: torch.Tensor, *others: torch.Tensor)
             raise ValueError(f"unsupported device {x.device}")
 
 
+def _check_packed_inputs(tp, cg, k0, goff, tids, n_groups: int, *others) -> None:
+    if tp.dim() != 4 or tp.shape[1] != KC or tp.shape[3] != NF or tp.dtype != torch.float32:
+        raise ValueError(f"tp must be (NB, {KC}, TG, {NF}) float32, got {tuple(tp.shape)} {tp.dtype}")
+    NB, _, TG, _ = tp.shape
+    for name, x, shape in (("cg", cg, (NB,)), ("k0", k0, (NB,)), ("goff", goff, (1,)),
+                           ("tids", tids, (NB, TG))):
+        if x.shape != shape or x.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got {tuple(x.shape)} {x.dtype}")
+    if not 1 <= n_groups <= NB:
+        raise ValueError(f"n_groups {n_groups} out of range for {NB} chunks")
+    for x in (tp, cg, k0, goff, tids, *others):
+        if x.device != tp.device:
+            raise ValueError("all inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+        if x.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {x.device}")
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -183,8 +237,9 @@ def _stream() -> ctypes.c_void_p:
 # plain PyTorch versions (CPU tensors only)
 
 
-def _pixel_coords(T: int, ntx: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    tids = torch.arange(T, device=device)
+def _pixel_coords(T: int, ntx: int, device, tids=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T, P) pixel coordinates of tiles 0..T-1, or of the tile ids `tids`."""
+    tids = torch.arange(T, device=device) if tids is None else tids.reshape(-1)
     lin = torch.arange(P, device=device)
     px = ((tids % ntx) * TILE)[:, None].to(torch.float32) + (lin % TILE)[None].to(torch.float32)
     py = ((tids // ntx) * TILE)[:, None].to(torch.float32) + (lin // TILE)[None].to(torch.float32)
@@ -203,6 +258,50 @@ def _alpha_at(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return alpha, G, dx, dy, raw
 
 
+def _slot_forward(p, px, py, alive, trans, acc):
+    """One marched slot of the forward, for the tiles of the rows of p
+    (those not `alive` take alpha 0). Returns (blend weights (T, P),
+    trans', acc')."""
+    alpha = _alpha_at(p, px, py)[0]
+    alpha = torch.where(alive[:, None], alpha, torch.zeros_like(alpha))
+    w = torch.where(trans > T_EPS, alpha * trans, torch.zeros_like(alpha))
+    acc = acc + w[:, None, :] * p[:, 5:9, None]
+    return w, trans * (1.0 - alpha), acc
+
+
+def _slot_backward(p, px, py, alive, trans, prefix, acc, trans_final, dacc, dtrans):
+    """One marched slot of the backward. Returns (d params (T, NF), trans',
+    prefix')."""
+    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+    alpha, G, dx, dy, raw = _alpha_at(p, px, py)
+    alpha = torch.where(alive[:, None], alpha, zero)
+    contributes = trans > T_EPS
+    w = torch.where(contributes, alpha * trans, zero)
+    col = p[:, 5:9, None]  # (T, 4, 1)
+    prefix = prefix + w[:, None, :] * col
+    one_m = 1.0 - alpha
+    suffix = acc - prefix
+    # dL/dalpha = <g_acc, T_k c_k - S_k/(1-alpha_k)> - g_T * T_N/(1-alpha_k)
+    term = torch.where(
+        contributes[:, None, :], trans[:, None, :] * col - suffix / one_m[:, None, :], zero
+    )
+    galpha = (dacc * term).sum(dim=1) - dtrans * trans_final / one_m
+    galpha = torch.where(alpha > 0.0, galpha, zero)
+    unclamped = raw < ALPHA_MAX
+    d_op_px = torch.where(unclamped, galpha * G, zero)
+    d_pow = torch.where(unclamped, galpha * alpha, zero)
+    ca, cb, cc = p[:, 2:3], p[:, 3:4], p[:, 4:5]
+    d = torch.empty((p.shape[0], NF), dtype=torch.float32, device=p.device)
+    d[:, 0] = (d_pow * (ca * dx + cb * dy)).sum(dim=1)
+    d[:, 1] = (d_pow * (cc * dy + cb * dx)).sum(dim=1)
+    d[:, 2] = (d_pow * (-0.5 * dx * dx)).sum(dim=1)
+    d[:, 3] = (d_pow * (-dx * dy)).sum(dim=1)
+    d[:, 4] = (d_pow * (-0.5 * dy * dy)).sum(dim=1)
+    d[:, 5:9] = (dacc * w[:, None, :]).sum(dim=2)
+    d[:, 9] = d_op_px.sum(dim=1)
+    return d, trans * one_m, prefix
+
+
 def blend_forward_plain(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     K, T, _ = tp.shape
     px, py = _pixel_coords(T, ntx, tp.device)
@@ -214,13 +313,8 @@ def blend_forward_plain(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
         alive = alive & (k < counts) & (trans > T_EPS).any(dim=1)
         if not bool(alive.any()):
             break
-        p = tp[k]
-        alpha, _G, _dx, _dy, _raw = _alpha_at(p, px, py)
-        alpha = torch.where(alive[:, None], alpha, torch.zeros_like(alpha))
-        w = torch.where(trans > T_EPS, alpha * trans, torch.zeros_like(alpha))
-        acc = acc + w[:, None, :] * p[:, 5:9, None]
+        w, trans, acc = _slot_forward(tp[k], px, py, alive, trans, acc)
         nt[:, k] = (w > 0.0).sum(dim=1).to(torch.int32)
-        trans = trans * (1.0 - alpha)
     return acc, trans, nt
 
 
@@ -231,38 +325,12 @@ def blend_backward_plain(tp, counts, acc, trans_final, dacc, dtrans, ntx: int):
     trans = torch.ones((T, P), dtype=torch.float32, device=tp.device)
     prefix = torch.zeros((T, 4, P), dtype=torch.float32, device=tp.device)
     alive = torch.ones((T,), dtype=torch.bool, device=tp.device)
-    zero = torch.zeros((), dtype=torch.float32, device=tp.device)
     for k in range(K):
         alive = alive & (k < counts) & (trans > T_EPS).any(dim=1)
         if not bool(alive.any()):
             break
-        p = tp[k]
-        alpha, G, dx, dy, raw = _alpha_at(p, px, py)
-        alpha = torch.where(alive[:, None], alpha, zero)
-        contributes = trans > T_EPS
-        w = torch.where(contributes, alpha * trans, zero)
-        col = p[:, 5:9, None]  # (T, 4, 1)
-        prefix = prefix + w[:, None, :] * col
-        one_m = 1.0 - alpha
-        suffix = acc - prefix
-        # dL/dalpha = <g_acc, T_k c_k - S_k/(1-alpha_k)> - g_T * T_N/(1-alpha_k)
-        term = torch.where(
-            contributes[:, None, :], trans[:, None, :] * col - suffix / one_m[:, None, :], zero
-        )
-        galpha = (dacc * term).sum(dim=1) - dtrans * trans_final / one_m
-        galpha = torch.where(alpha > 0.0, galpha, zero)
-        unclamped = raw < ALPHA_MAX
-        d_op_px = torch.where(unclamped, galpha * G, zero)
-        d_pow = torch.where(unclamped, galpha * alpha, zero)
-        ca, cb, cc = p[:, 2:3], p[:, 3:4], p[:, 4:5]
-        dtp[k, :, 0] = (d_pow * (ca * dx + cb * dy)).sum(dim=1)
-        dtp[k, :, 1] = (d_pow * (cc * dy + cb * dx)).sum(dim=1)
-        dtp[k, :, 2] = (d_pow * (-0.5 * dx * dx)).sum(dim=1)
-        dtp[k, :, 3] = (d_pow * (-dx * dy)).sum(dim=1)
-        dtp[k, :, 4] = (d_pow * (-0.5 * dy * dy)).sum(dim=1)
-        dtp[k, :, 5:9] = (dacc * w[:, None, :]).sum(dim=2)
-        dtp[k, :, 9] = d_op_px.sum(dim=1)
-        trans = trans * one_m
+        dtp[k], trans, prefix = _slot_backward(tp[k], px, py, alive, trans, prefix, acc,
+                                               trans_final, dacc, dtrans)
     return dtp
 
 
@@ -285,6 +353,102 @@ def median_depth_plain(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
         dmed = torch.where(crossed, p[:, 8:9].expand_as(dmed), dmed)
         trans = t_new
     return dmed, 1.0 - trans
+
+
+def _group_chunks(cg: torch.Tensor, n_groups: int):
+    """Per group g < n_groups: (first chunk, number of chunks) in the sorted
+    chunk-group map cg (padding chunks carry cg = n_groups)."""
+    g = torch.arange(n_groups + 1, dtype=cg.dtype, device=cg.device)
+    bounds = torch.searchsorted(cg, g)
+    return bounds[:-1], bounds[1:] - bounds[:-1]
+
+
+def _packed_tiles(tp, cg, goff, tids, n_groups: int, ntx: int):
+    """The (group, lane) tiles of a packed block, one row per tile in group
+    order: (first chunk (G,), chunks (G,), pixel coordinates px, py
+    (G*TG, P)). A group's tile ids are those of its first chunk."""
+    NB, _, TG, _ = tp.shape
+    start, nch = _group_chunks(cg, n_groups)
+    tid = tids[start.clamp(max=NB - 1).long()] + goff.reshape(())  # (G, TG)
+    px, py = _pixel_coords(n_groups * TG, ntx, tp.device, tids=tid)
+    return start, nch, px, py
+
+
+def _packed_slots(tp, start, nch, trans_of):
+    """Slot positions of a packed march in order, for all tiles at once:
+    yields (alive (G*TG,), chunk of each group (G,), `has` (G,): whether the
+    group has that chunk, slot index kc). A tile stops before the slot at
+    which its group has no chunk left or no pixel of it has transmittance
+    above T_EPS (`trans_of()` reads the march's current (G*TG, P)
+    transmittance); the march ends when every tile has stopped."""
+    NB, _, TG, _ = tp.shape
+    G = start.shape[0]
+    alive = (nch > 0).repeat_interleave(TG)
+    for c in range(int(nch.max()) if G else 0):
+        has = c < nch
+        b = (start + c).clamp(max=NB - 1).long()
+        for kc in range(KC):
+            alive = alive & has.repeat_interleave(TG) & (trans_of() > T_EPS).any(dim=1)
+            if not bool(alive.any()):
+                return
+            yield alive, b, has, kc
+
+
+def _to_group_major(x: torch.Tensor, G: int, TG: int, fill: float) -> torch.Tensor:
+    """(G*TG, C, P) or (G*TG, P) tile rows -> (G+1, C, TG, P) or (G+1, TG, P),
+    with row G (no tile) filled with `fill`."""
+    x = x.reshape(G, TG, *x.shape[1:])
+    if x.dim() == 4:
+        x = x.transpose(1, 2)
+    return torch.cat([x, torch.full((1, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+
+
+def _from_group_major(x: torch.Tensor, G: int) -> torch.Tensor:
+    """Inverse of _to_group_major (row G dropped)."""
+    x = x[:G]
+    if x.dim() == 4:
+        x = x.transpose(1, 2)
+    return x.reshape(G * x.shape[1], *x.shape[2:])
+
+
+def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
+                               with_nt: bool = True, probe_wmax: bool = False):
+    NB, _, TG, _ = tp.shape
+    G = n_groups
+    dev = tp.device
+    start, nch, px, py = _packed_tiles(tp, cg, goff, tids, G, ntx)
+    state = {"trans": torch.ones((G * TG, P), dtype=torch.float32, device=dev)}
+    acc = torch.zeros((G * TG, 4, P), dtype=torch.float32, device=dev)
+    nt = torch.zeros((NB, KC, TG), dtype=torch.int32, device=dev)
+    for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
+        p = tp[b, kc].reshape(G * TG, NF)
+        w, state["trans"], acc = _slot_forward(p, px, py, alive, state["trans"], acc)
+        if probe_wmax:
+            val = torch.ceil(w.max(dim=1).values * 65536.0).to(torch.int32)
+        elif with_nt:
+            val = (w > 0.0).sum(dim=1).to(torch.int32)
+        else:
+            continue
+        nt[b[has], kc] = val.reshape(G, TG)[has]
+    return _to_group_major(acc, G, TG, 0.0), _to_group_major(state["trans"], G, TG, 1.0), nt
+
+
+def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, dtrans,
+                                n_groups: int, ntx: int):
+    NB, _, TG, _ = tp.shape
+    G = n_groups
+    dev = tp.device
+    start, nch, px, py = _packed_tiles(tp, cg, goff, tids, G, ntx)
+    acc, trans_final, dacc, dtrans = (_from_group_major(x, G) for x in (acc, trans_final, dacc, dtrans))
+    state = {"trans": torch.ones((G * TG, P), dtype=torch.float32, device=dev)}
+    prefix = torch.zeros((G * TG, 4, P), dtype=torch.float32, device=dev)
+    dtp = torch.zeros((NB, KC, TG, NF), dtype=torch.float32, device=dev)
+    for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
+        p = tp[b, kc].reshape(G * TG, NF)
+        d, state["trans"], prefix = _slot_backward(p, px, py, alive, state["trans"], prefix, acc,
+                                                   trans_final, dacc, dtrans)
+        dtp[b[has], kc] = d.reshape(G, TG, NF)[has]
+    return dtp
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +514,72 @@ def median_depth(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     return dmed, opac
 
 
+def packed_blend_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
+                         with_nt: bool = True, probe_wmax: bool = False):
+    """Front-to-back blend over packed (group-CSR) chunk lists.
+
+    tp: (NB, KC, TG, NF) float32, chunk b holding slots [k0[b], k0[b] + KC)
+    of the TG tiles of group cg[b], front slot first, sentinel rows
+    (opacity 0) in empty slots. cg (NB,) int32 is sorted, a group's chunks
+    are consecutive in slot order, and padding chunks carry cg = n_groups.
+    tids (NB, TG) int32: the tile id of each (chunk, lane); goff (1,) int32
+    shifts them (tile-sharded rendering). k0 is taken for the interface of
+    the Pallas kernel; chunk order within a group already gives it.
+
+    Returns (acc (G+1, 4, TG, P), trans (G+1, TG, P), nt (NB, KC, TG) int32)
+    in group order, row G a filler (zeros, ones). nt holds per-slot touched
+    pixel counts (`with_nt`), or with `probe_wmax` each slot's largest blend
+    weight as ceil(w * 65536), or zeros."""
+    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups)
+    if tp.device.type == "cpu":
+        return packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, probe_wmax)
+    NB, _, TG, _ = tp.shape
+    acc = torch.empty((n_groups + 1, 4, TG, P), dtype=torch.float32, device=tp.device)
+    trans = torch.empty((n_groups + 1, TG, P), dtype=torch.float32, device=tp.device)
+    nt = torch.empty((NB, KC, TG), dtype=torch.int32, device=tp.device)
+    mode = 2 if probe_wmax else (1 if with_nt else 0)
+    err = _library().lvdgs_packed_fwd(
+        tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
+        trans.data_ptr(), nt.data_ptr(), NB, n_groups, TG, ntx, mode, _stream(),
+    )
+    _check_launch(err, "packed_blend_forward")
+    packed_blend_forward.launches.add()
+    return acc, trans, nt
+
+
+def packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
+                          ntx: int):
+    """VJP of packed_blend_forward w.r.t. tp -> dtp (NB, KC, TG, NF); slots
+    the march never reaches (and padding chunks) get zeros."""
+    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups, acc, trans, dacc, dtrans)
+    NB, _, TG, _ = tp.shape
+    for name, x, shape in (("acc", acc, (n_groups + 1, 4, TG, P)), ("dacc", dacc, (n_groups + 1, 4, TG, P)),
+                           ("trans", trans, (n_groups + 1, TG, P)),
+                           ("dtrans", dtrans, (n_groups + 1, TG, P))):
+        if x.shape != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
+    if tp.device.type == "cpu":
+        return packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans,
+                                           n_groups, ntx)
+    dtp = torch.empty((NB, KC, TG, NF), dtype=torch.float32, device=tp.device)
+    err = _library().lvdgs_packed_bwd(
+        tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
+        trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(), NB, n_groups, TG,
+        ntx, _stream(),
+    )
+    _check_launch(err, "packed_blend_backward")
+    packed_blend_backward.launches.add()
+    return dtp
+
+
 blend_forward.launches = LaunchCounter()
 blend_backward.launches = LaunchCounter()
 median_depth.launches = LaunchCounter()
+packed_blend_forward.launches = LaunchCounter()
+packed_blend_backward.launches = LaunchCounter()
 
-KERNEL_WRAPPERS = (blend_forward, blend_backward, median_depth)
+KERNEL_WRAPPERS = (blend_forward, blend_backward, median_depth, packed_blend_forward,
+                   packed_blend_backward)
 
 
 class BlendFunction(torch.autograd.Function):
@@ -381,3 +606,30 @@ class BlendFunction(torch.autograd.Function):
 def blend(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     """Differentiable (w.r.t. tp) front-to-back blend."""
     return BlendFunction.apply(tp, counts, ntx)
+
+
+class PackedBlendFunction(torch.autograd.Function):
+    """packed_blend_forward with packed_blend_backward as its VJP (no
+    gradient to the chunk maps or to the per-slot counts)."""
+
+    @staticmethod
+    def forward(ctx, tp, cg, k0, goff, tids, n_groups, ntx, with_nt):
+        acc, trans, nt = packed_blend_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt=with_nt)
+        ctx.save_for_backward(tp, cg, k0, goff, tids, acc, trans)
+        ctx.n_groups, ctx.ntx = n_groups, ntx
+        ctx.mark_non_differentiable(nt)
+        return acc, trans, nt
+
+    @staticmethod
+    def backward(ctx, dacc, dtrans, _dnt):
+        tp, cg, k0, goff, tids, acc, trans = ctx.saved_tensors
+        dacc = torch.zeros_like(acc) if dacc is None else dacc.contiguous()
+        dtrans = torch.zeros_like(trans) if dtrans is None else dtrans.contiguous()
+        dtp = packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans,
+                                    ctx.n_groups, ctx.ntx)
+        return dtp, None, None, None, None, None, None, None
+
+
+def blend_packed(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bool = True):
+    """Differentiable (w.r.t. tp) blend over packed chunk lists."""
+    return PackedBlendFunction.apply(tp, cg, k0, goff, tids, n_groups, ntx, with_nt)

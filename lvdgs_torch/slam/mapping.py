@@ -1,5 +1,5 @@
 """Windowed mapping, covisibility prune and colour refinement (PyTorch port
-of ``lvdgs_tpu/slam/mapping.py``, dense path).
+of ``lvdgs_tpu/slam/mapping.py``).
 
 One `mapping_run` call is one mapping invocation of the reference backend:
 `n_iters` iterations over the keyframe window plus `n_random` replayed
@@ -13,6 +13,12 @@ window slots, the keyframe count), so the loop never waits on the device.
 Cameras whose loss weight is zero (padded window slots, absent replay
 keyframes) contribute exactly nothing in the reference; they are skipped
 here instead of rendered.
+
+Under saturation feedback (packed renders, RenderConfig.saturation_feedback)
+the window cameras' bins come from prepare_bins_with_touched once per
+period, and the full-depth probe's visibility, carried through densify's
+clone/split/prune, is what the opacity reset and the result's visibility
+read: a budget-capped render reports contributors it dropped as untouched.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..core import lie
 from ..core.camera import Intrinsics
 from ..core.losses import isotropic_reg, l1_loss, ssim
 from ..gaussian import model as gm
-from ..ops.rasterizer import RenderConfig, prepare_bins, rasterize
+from ..ops.rasterizer import RenderConfig, prepare_bins, prepare_bins_with_touched, rasterize
 from .state import KeyframeBuffer
 
 
@@ -154,6 +160,7 @@ def mapping_run(
         return image * mr, mr, mono[None] * md, md
 
     window_targets = {i: targets(safe_slots[i]) for i in valid_idx}
+    use_fb = rcfg.use_packed and rcfg.saturation_feedback
 
     while local_it < local_end:
         # --- per-period work: replay draw and binning at current poses ---
@@ -173,9 +180,17 @@ def mapping_run(
         with torch.no_grad():
             p0 = gmap.params()
             bins = {}
+            if use_fb:
+                # this period's full-depth probe visibility of the window
+                occ_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
             for kind, j in cams:
                 R, T = (Rw[j], Tw[j]) if kind == "w" else (kfbuf.R[replay_slots[j]], kfbuf.T[replay_slots[j]])
-                bins[(kind, j)] = prepare_bins(p0, gmap.active, R, T, intr, rcfg, margin=mcfg.bin_margin)
+                if use_fb and kind == "w":
+                    bins[(kind, j)], occ_vis[j] = prepare_bins_with_touched(
+                        p0, gmap.active, R, T, intr, rcfg, margin=mcfg.bin_margin)
+                else:
+                    bins[(kind, j)] = prepare_bins(p0, gmap.active, R, T, intr, rcfg,
+                                                   margin=mcfg.bin_margin)
         replay_targets = {j: targets(replay_slots[j]) for kind, j in cams if kind == "r"}
 
         stop_at = min(local_it + mcfg.rebin_every, local_end)
@@ -186,7 +201,8 @@ def mapping_run(
                 reset_pred = it_count in (mcfg.init_gaussian_reset, mcfg.densify_from_iter)
             else:
                 reset_pred = it_count % mcfg.gaussian_reset == 0
-            need_nt = reset_pred or local_it >= local_end
+            # under feedback the period probe gives visibility (see above)
+            need_nt = (reset_pred or local_it >= local_end) and not use_fb
 
             # --- per-camera losses; one backward for all of them ---
             params = {k: v.detach().requires_grad_(True) for k, v in gmap.params().items()}
@@ -247,10 +263,12 @@ def mapping_run(
                     gmap.grad_denom.add_(vis_b.sum(dim=0).to(torch.float32))
 
                 # window visibility for the opacity reset and the result
-                win_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
-                if need_nt:
-                    for i in valid_idx:
-                        win_vis[i] = nt_l[("w", i)] > 0
+                # (under feedback: the period probe's, after densify below)
+                if not use_fb:
+                    win_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
+                    if need_nt:
+                        for i in valid_idx:
+                            win_vis[i] = nt_l[("w", i)] > 0
 
                 if mcfg.initialization:
                     do_densify = (local_it - 1) % mcfg.init_gaussian_update == 0
@@ -262,11 +280,16 @@ def mapping_run(
                     th, ext, max_screen = mcfg.gaussian_th, mcfg.gaussian_extent, mcfg.size_threshold
                 if do_densify:
                     split_eps = torch.randn((2, C, 3), generator=generator).to(dev)
-                    gm.densify_and_prune(
+                    vis_kept = gm.densify_and_prune(
                         gmap, split_eps, grad_threshold=mcfg.densify_grad_threshold,
                         min_opacity=th, extent=ext, max_screen_size=max_screen,
                         percent_dense=mcfg.percent_dense, opt_state=opt_state,
+                        aux_vis=occ_vis if use_fb else None,
                     )
+                    if use_fb:
+                        occ_vis = vis_kept
+                if use_fb:
+                    win_vis = occ_vis
                 if do_reset:
                     if mcfg.initialization:
                         gm.reset_opacity(gmap, opt_state)

@@ -1,5 +1,5 @@
 """Single-process SLAM orchestrator (PyTorch port of
-``lvdgs_tpu/slam/system.py``, dense rendering path).
+``lvdgs_tpu/slam/system.py``).
 
 Host side: dataset IO, keyframe policy, window management, per-frame
 bookkeeping, evaluation. Device side: tracking, mapping, seeding, pruning.
@@ -8,14 +8,23 @@ per frame, tracking from a pose seed; on a keyframe, median-depth fusion
 with patch scale alignment, seeding, windowed mapping and covisibility
 prune; at the end colour refinement, ATE and render metrics.
 
+Rendering: on CUDA, tracking renders packed at 96 slots per tile and
+mapping (init, windowed, colour refinement) at 128, both with saturation
+feedback, as the reference does off the CPU; on the CPU both render dense.
+The exact renders (eval, covisibility prune, tracking's final bookkeeping
+render, median-depth fusion) stay dense. Performance.packed_*_budget and
+saturation_feedback[_mapping] override the defaults.
+
 Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: packed rendering budgets (A9), pyramid tracking (A6),
-global BA and checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors
-(A12), the GUI (A14) and data-parallel mapping (A15).
+ROADMAP item: the bf16 packed blend (B4-bf16, B5-bf16), the active-prefix
+binning bucket (C4), pyramid tracking (A6), global BA and checkpoints
+(A7/A8), dynamic filtering (A11), MASt3R priors (A12), the GUI (A14) and
+data-parallel mapping (A15).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional
@@ -58,10 +67,8 @@ def _refuse_unported(config: dict) -> None:
     tr = config.get("Training", {}) or {}
     res = config.get("Results", {}) or {}
     checks = [
-        (perf.get("packed_tracking_budget", 0) or perf.get("packed_mapping_budget", 0),
-         "packed rendering budgets (ROADMAP A9); set Performance.packed_*_budget to 0"),
-        (perf.get("bin_active_bucket", False), "active-prefix binning bucket (ROADMAP A9, C4)"),
-        (perf.get("blend_bf16", False), "bf16 packed blend (ROADMAP A9)"),
+        (perf.get("bin_active_bucket", False), "the active-prefix binning bucket (ROADMAP C4)"),
+        (perf.get("blend_bf16", False), "the bf16 packed blend (ROADMAP B4-bf16, B5-bf16)"),
         (perf.get("data_parallel", False), "data-parallel mapping (ROADMAP A15)"),
         (tr.get("track_pyramid", False), "pyramid tracking (ROADMAP A6)"),
         (res.get("global_BA", False), "global bundle adjustment (ROADMAP A7)"),
@@ -102,6 +109,19 @@ class SLAM:
             tile_chunk=perf.get("tile_chunk", 128),
             white_background=config.get("model_params", {}).get("white_background", False),
         )
+        # packed (group-CSR) render budgets per path, 0 = dense: on CUDA
+        # tracking at 96 and mapping at 128 slots per tile with saturation
+        # feedback (192 without), on the CPU dense, as the reference sets
+        # them off and on its CPU. Exact renders keep self.rcfg.
+        on_cpu = self.device.type == "cpu"
+        tb = perf.get("packed_tracking_budget", 0 if on_cpu else 96)
+        sat_t = perf.get("saturation_feedback", True)
+        sat_m = perf.get("saturation_feedback_mapping", True)
+        mb = perf.get("packed_mapping_budget", 0 if on_cpu else (128 if sat_m else 192))
+        self.rcfg_track = (dataclasses.replace(self.rcfg, use_packed=True, slot_budget_per_tile=tb,
+                                               saturation_feedback=sat_t) if tb else self.rcfg)
+        self.rcfg_map = (dataclasses.replace(self.rcfg, use_packed=True, slot_budget_per_tile=mb,
+                                             saturation_feedback=sat_m) if mb else self.rcfg)
         # synced_timers: end each timed phase with a device synchronise so
         # the phase timers read device time (costs one sync per phase)
         self.synced_timers = bool(int(os.environ.get("LVDGS_SYNCED_TIMERS", "0"))) or perf.get(
@@ -275,7 +295,7 @@ class SLAM:
             res = mapping_run(
                 self.gmap, self.opt_state, self.kfbuf, window_slots, self.generator,
                 self.iteration_count, seg, local_it,
-                intr=self.intr, rcfg=self.rcfg, opt=self.opt, mcfg=mcfg,
+                intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=mcfg,
             )
             self.iteration_count = res.iteration_count
             local_it += seg
@@ -643,7 +663,8 @@ class SLAM:
 
     def _track(self, idx: int, cam: Camera):
         cam = self._pose_seed(idx, cam)
-        res = track_camera(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg, self.tcfg)
+        res = track_camera(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg_track,
+                           self.tcfg)
         cam = cam.update_RT(res.R, res.T).replace(exposure_a=res.exposure_a, exposure_b=res.exposure_b)
         self._cams[idx] = cam
         last_kf = self.current_window[0] if self.current_window else None
@@ -764,7 +785,7 @@ class SLAM:
         Log(f"Starting color refinement ({iters} iters{', features-only' if features_only else ''})")
         color_refine_run(
             self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
-            intr=self.intr, rcfg=self.rcfg, opt=self.opt, mcfg=self.mcfg,
+            intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
             features_only=bool(features_only),
         )
         Log("Map refinement done")

@@ -1,5 +1,5 @@
-"""Frame-to-map tracking on the dense path (PyTorch port of
-``track_camera`` in ``lvdgs_tpu/slam/tracking.py``).
+"""Frame-to-map tracking (PyTorch port of ``track_camera`` in
+``lvdgs_tpu/slam/tracking.py``).
 
 Up to `max_iters` Adam steps over a 6-dof se(3) pose delta and an affine
 exposure (a, b), each rendering the map and differentiating the
@@ -7,6 +7,14 @@ exposure-compensated, opacity-weighted, edge-masked L1 loss. The tile
 assignment is recomputed every `rebin_every` steps with a `bin_margin`
 pixel slack. Exits: ||tau|| < convergence_eps, max_iters, or a loss plateau
 checked at rebin-period boundaries.
+
+On the packed path (RenderConfig.use_packed) with `lin_period`, each rebin
+period linearises the per-row fields in the pose once (pose_lin_gather) and
+every step renders value + Jacobian . tau_acc (rasterize_lin): a step is
+row-local glue and the two packed kernels. Saturation caps are probed at
+the first rebin and carried (the map is frozen here), and probed again once
+the pose drift since the last probe exceeds `cap_reprobe_drift`. The final
+bookkeeping render stays dense.
 
 The reference runs the loops as `lax.while_loop`s on the device. Here they
 are Python loops that read device state once per rebin period: within a
@@ -23,7 +31,10 @@ import torch
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
 from ..core.losses import get_median_depth
-from ..ops.rasterizer import RenderConfig, prepare_bins, rasterize
+from ..ops.rasterizer import (
+    PackedBins, RenderConfig, pose_lin_gather, prepare_bins_with_caps, rasterize, rasterize_lin,
+    rasterize_pose_lin,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +52,18 @@ class TrackingConfig:
     bin_margin: float = 16.0
     # loss-plateau exit at rebin-period boundaries: stop when a period
     # improved the loss by less than plateau_tol (relative); <= 0 disables
+    # pose-linearised backward on the packed path (rasterize_pose_lin), for
+    # steps that are not period-linearised
+    pose_lin: bool = False
+    # period-linearised rendering on the packed path (see the module doc)
+    lin_period: bool = True
     plateau_tol: float = 0.005
     plateau_min_iters: int = 40
+    # re-probe the saturation caps at the next rebin once the drift metric
+    # ||d trans|| + 10 ||d rot|| since the last probe exceeds this
+    cap_reprobe_drift: float = 0.02
+    # the final dense bookkeeping render (its n_touched); off, n_touched is 0
+    final_render: bool = True
     # gate dynamic pixels out of the tracking loss with cam.static_mask
     use_static_mask: bool = False
 
@@ -76,13 +97,19 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
     lr_tau = torch.tensor([tcfg.lr_trans] * 3 + [tcfg.lr_rot] * 3, dtype=torch.float32, device=dev)
     b1, b2 = tcfg.b1, tcfg.b2
 
-    def step(s: dict, bins) -> dict:
-        """One Adam step; a state already `done` passes through unchanged."""
+    def step(s: dict, bins, tpj=None) -> dict:
+        """One Adam step; a state already `done` passes through unchanged.
+        With `tpj` the render is period-linearised at the drift tau_acc."""
         tau = torch.zeros(6, dtype=torch.float32, device=dev, requires_grad=True)
         ab = s["ab"].detach().requires_grad_(True)
-        Rn, Tn = lie.apply_delta(s["R"], s["T"], tau)
         # n_touched is consumed only after the loop (final render below)
-        out = rasterize(params, active, Rn, Tn, intr, rcfg, bins=bins, need_n_touched=False)
+        if tpj is not None:
+            out = rasterize_lin(tpj, s["tau_acc"] + tau, intr, rcfg, bins)
+        elif tcfg.pose_lin and isinstance(bins, PackedBins):
+            out = rasterize_pose_lin(params, active, s["R"], s["T"], tau, intr, rcfg, bins)
+        else:
+            Rn, Tn = lie.apply_delta(s["R"], s["T"], tau)
+            out = rasterize(params, active, Rn, Tn, intr, rcfg, bins=bins, need_n_touched=False)
         image_ab = torch.exp(ab[0]) * out.image + ab[1]
         loss = (out.opacity * (image_ab * rgb_mask - gt_masked).abs()).mean()
         g_tau, g_ab = torch.autograd.grad(loss, (tau, ab))
@@ -106,6 +133,10 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
                 done=torch.linalg.norm(tau_new) < tcfg.convergence_eps,
                 image=out.image.detach(), depth=out.depth.detach(),
                 opacity=out.opacity.detach(), loss=loss.detach(),
+                # first-order accumulation of the left-multiplied deltas
+                tau_acc=s["tau_acc"] + tau_new if tpj is not None else s["tau_acc"],
+                drift_acc=s["drift_acc"] + torch.linalg.norm(tau_new[:3])
+                + 10.0 * torch.linalg.norm(tau_new[3:]),
             )
             return {k: torch.where(run, v, s[k]) for k, v in new.items()}
 
@@ -120,18 +151,31 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
         done=torch.zeros((), dtype=torch.bool, device=dev),
         image=torch.zeros((3, H, W), **f32), depth=torch.zeros((1, H, W), **f32),
         opacity=torch.zeros((1, H, W), **f32), loss=torch.zeros((), **f32),
+        tau_acc=torch.zeros(6, **f32), drift_acc=torch.zeros((), **f32),
     )
-    it_host, done_host = 0, False
+    it_host, done_host, drift_host = 0, False, 0.0
+    caps = None  # saturation caps; None: probe at the next rebin
     while not done_host and it_host < tcfg.max_iters:
+        # caps stale after a large pose correction since the last probe
+        if drift_host > tcfg.cap_reprobe_drift:
+            caps = None
+            s["drift_acc"] = torch.zeros((), **f32)
         # rebin at the current pose with a pixel-radius margin
-        bins = prepare_bins(params, active, s["R"], s["T"], intr, rcfg, tcfg.bin_margin)
+        bins, caps = prepare_bins_with_caps(params, active, s["R"], s["T"], intr, rcfg,
+                                            tcfg.bin_margin, caps)
+        tpj = None
+        if tcfg.lin_period and isinstance(bins, PackedBins):
+            # linearise the per-row fields at this period's pose; the drift
+            # accumulates in tau_acc from zero
+            tpj, _ = pose_lin_gather(params, active, s["R"], s["T"], intr, rcfg, bins)
+            s["tau_acc"] = torch.zeros(6, **f32)
         prev_loss = s["loss"]
         # the period's first step is unconditional; its loss is the plateau
         # baseline of the first period
-        s1 = step(s, bins)
+        s1 = step(s, bins, tpj)
         s2 = s1
         for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
-            s2 = step(s2, bins)
+            s2 = step(s2, bins, tpj)
         if tcfg.plateau_tol > 0:
             base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
             plateau = (
@@ -142,12 +186,20 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
             s2["done"] = s2["done"] | plateau
         s = s2
         # the one host read of the period
-        it_host, done_host = int(s["it"]), bool(s["done"])
+        it_f, done_f, drift_host = torch.stack(
+            [s["it"].to(torch.float32), s["done"].to(torch.float32), s["drift_acc"]]).tolist()
+        it_host, done_host = int(it_f), bool(done_f)
 
     median_depth = get_median_depth(s["depth"], s["opacity"])
-    # one exact render at the converged pose for the visibility bookkeeping
-    with torch.no_grad():
-        final_nt = rasterize(params, active, s["R"], s["T"], intr, rcfg).n_touched
+    # one exact render at the converged pose for the visibility bookkeeping,
+    # dense even when the steps rendered packed: a binding budget drops
+    # deep-tile Gaussians, which would skew the keyframe policy's visibility
+    if tcfg.final_render:
+        rcfg_exact = dataclasses.replace(rcfg, use_packed=False)
+        with torch.no_grad():
+            final_nt = rasterize(params, active, s["R"], s["T"], intr, rcfg_exact).n_touched
+    else:
+        final_nt = torch.zeros(params["means"].shape[0], dtype=torch.int32, device=dev)
     return TrackResult(
         R=s["R"], T=s["T"], exposure_a=s["ab"][0], exposure_b=s["ab"][1],
         image=s["image"], depth=s["depth"], opacity=s["opacity"], n_touched=final_nt,

@@ -3,14 +3,16 @@
 
     python3 profile_torch.py [--frames 6] [--device cuda]
 
-Runs the street scene (configs/mono/synthetic/street.yaml at 1226x370, dense
-rendering, as chip_smoke.py does) for a few frames to build a real map and
-window, then profiles one `track_camera` call on the next frame and one
-20-iteration `mapping_run` on the current window with torch.profiler. Prints,
+Runs the street scene (configs/mono/synthetic/street.yaml at 1226x370, as
+configured: packed tracking at 96 and mapping at 128 slots per tile with
+saturation feedback) for a few frames to build a real map and window, then
+profiles with torch.profiler, on that same state: one `track_camera` call on
+the next frame, packed (period-linearised) and dense, and one 20-iteration
+`mapping_run` on the current window, packed with feedback and dense. Prints,
 for each: wall time, device-busy share (kernel time over wall time), the
-number of host-device synchronisations (CUDA sync debug mode), the blend
-kernels' launch counts, and the operators and kernels that take the most
-device and host time.
+number of device kernel launches, the number of host-device
+synchronisations (CUDA sync debug mode), the blend kernels' launch counts,
+and the operators and kernels that take the most device and host time.
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ def build_slam(frames: int, device):
     from lvdgs_torch.slam.system import SLAM
 
     config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
-    config["Performance"].update({"packed_tracking_budget": 0, "packed_mapping_budget": 0})
     config["Training"]["mono_scale_servo"] = False
     config["Dataset"]["n_frames"] = frames + 1
     slam = SLAM(config, save_dir=None, device=device)
@@ -63,9 +64,11 @@ def profile(label: str, fn, device, top: int = 12) -> None:
         torch.cuda.set_sync_debug_mode(0)
     launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    kernel_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA")
+    dev_events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernel_us = sum(e.self_device_time_total for e in dev_events)
+    n_dev = sum(e.count for e in dev_events)
     print(f"\n== {label}: wall {wall * 1e3:.1f} ms, kernels {kernel_us / 1e3:.1f} ms "
-          f"(device busy {100 * kernel_us / 1e3 / (wall * 1e3):.1f}%), "
+          f"(device busy {100 * kernel_us / 1e3 / (wall * 1e3):.1f}%), {n_dev} device kernel launches, "
           f"{len(syncs)} host-device synchronisations, blend kernel launches {launches}", flush=True)
     where = {}
     for w in syncs:
@@ -103,21 +106,26 @@ def main() -> None:
     idx = args.frames
     cam = slam._pose_seed(idx, slam._build_camera(idx))
 
-    def track():
-        res = track_camera(slam.gmap.params(), slam.gmap.active, cam, slam.intr, slam.rcfg, slam.tcfg)
+    def track(rcfg):
+        res = track_camera(slam.gmap.params(), slam.gmap.active, cam, slam.intr, rcfg, slam.tcfg)
         print(f"   tracking iterations: {res.iterations}", flush=True)
 
-    def mapping():
+    def mapping(rcfg):
         # on copies: the profiled run must not change the state it is run on twice
         gmap, opt_state = slam.gmap.clone(), slam.opt_state.clone()
         kfbuf = slam.kfbuf.replace(R=slam.kfbuf.R.clone(), T=slam.kfbuf.T.clone(),
                                    exposure_ab=slam.kfbuf.exposure_ab.clone())
         mapping_run(gmap, opt_state, kfbuf, slam._window_slots(), torch.Generator().manual_seed(0),
-                    slam.iteration_count, 20, intr=slam.intr, rcfg=slam.rcfg, opt=slam.opt,
+                    slam.iteration_count, 20, intr=slam.intr, rcfg=rcfg, opt=slam.opt,
                     mcfg=slam.mcfg)
 
-    profile(f"track_camera (frame {idx})", track, device)
-    profile(f"mapping_run (20 iterations, window of {len(slam.current_window)})", mapping, device)
+    for label, rcfg in ((f"packed {slam.rcfg_track.slot_budget_per_tile}", slam.rcfg_track),
+                        ("dense", slam.rcfg)):
+        profile(f"track_camera, {label} (frame {idx})", lambda: track(rcfg), device)
+    for label, rcfg in ((f"packed {slam.rcfg_map.slot_budget_per_tile}", slam.rcfg_map),
+                        ("dense", slam.rcfg)):
+        profile(f"mapping_run, {label} (20 iterations, window of {len(slam.current_window)})",
+                lambda: mapping(rcfg), device)
 
 
 if __name__ == "__main__":

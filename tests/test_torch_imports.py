@@ -54,8 +54,16 @@ def test_every_module_imports_without_gpu_or_nvcc():
 
 
 def test_kernel_sources_are_in_the_package():
-    src = (ROOT / "lvdgs_torch" / "csrc" / "blend.cu").read_text()
-    for kernel in ("blend_fwd_kernel", "blend_bwd_kernel", "median_depth_kernel"):
-        assert f"__global__ void __launch_bounds__(NPIX)\n{kernel}(" in src
-    for fn in ("lvdgs_blend_fwd", "lvdgs_blend_bwd", "lvdgs_median_depth"):
-        assert f"int {fn}(" in src
+    kernels = {
+        "blend.cu": (("blend_fwd_kernel", "blend_bwd_kernel", "median_depth_kernel"),
+                     ("lvdgs_blend_fwd", "lvdgs_blend_bwd", "lvdgs_median_depth")),
+        "blend_packed.cu": (("packed_fwd_kernel", "packed_bwd_kernel"),
+                            ("lvdgs_packed_fwd", "lvdgs_packed_bwd")),
+    }
+    for name, (globals_, entry_points) in kernels.items():
+        src = (ROOT / "lvdgs_torch" / "csrc" / name).read_text()
+        assert '#include "blend_common.cuh"' in src
+        for kernel in globals_:
+            assert f"__global__ void __launch_bounds__(NPIX)\n{kernel}(" in src
+        for fn in entry_points:
+            assert f"int {fn}(" in src

@@ -1,4 +1,5 @@
-"""The CUDA blend kernels against their plain PyTorch versions.
+"""The CUDA blend kernels (dense and packed) against their plain PyTorch
+versions.
 
 The tests marked `cuda` need the card and skip without one. This file
 imports neither JAX nor the reference package, so it also runs where only
@@ -9,9 +10,11 @@ PyTorch is installed:
 Tolerances: the forward and median kernels round every operation as the
 plain versions do (nvcc -fmad=false) and agree to 1e-5; the backward sums
 each slot's 256 pixel terms in another order and agrees to 1e-5 of each
-field's largest gradient. The rasterizer's gradients also pass through the
-scatter-add of the slot gather, whose atomic adds run in any order, and
-are held to 1e-3 of each field's largest gradient.
+field's largest gradient. The packed kernels are held to the same
+tolerances, with their per-slot counts and probe weights equal. The
+rasterizer's gradients also pass through the scatter-add of the slot
+gather, whose atomic adds run in any order, and are held to 1e-3 of each
+field's largest gradient.
 """
 import numpy as np
 import pytest
@@ -72,6 +75,59 @@ def test_kernels_match_plain(cuda_device, K, T):
     torch.cuda.synchronize()
 
 
+def _packed_block(T, ntx, budget, K, seed, device, sort_by_depth=True, TG=16):
+    """A packed block made by pack_bins from a random dense block of depth-
+    sorted slot lists (sorted grouping with random caps, or plain grouping)."""
+    tp, counts, _ = _random_block(K, T, seed, "cpu", ntx)
+    C = K * T
+    tile_idx = torch.arange(C).reshape(T, K)  # row t * K + k of fields is tp[k, t]
+    slot_valid = torch.arange(K)[None] < counts[:, None].long()
+    tile_idx = torch.where(slot_valid, tile_idx, C)
+    fields = torch.cat([tp.permute(1, 0, 2).reshape(C, rc.NF), torch.zeros(1, rc.NF)])
+    cap = None
+    if sort_by_depth:
+        cap = torch.tensor(np.random.default_rng(seed).integers(0, K + 1, T), dtype=torch.int32)
+    pb = tr.pack_bins(tile_idx, slot_valid, C, tile_group=TG, slot_budget_per_tile=budget,
+                      tile_cap=cap, sort_by_depth=sort_by_depth)
+    ptp = tr._gather_rows(fields, pb.gid).contiguous()
+    G = -(-T // TG)
+    return [x.to(device) for x in (ptp, pb.cg, pb.k0, torch.zeros(1, dtype=torch.int32), pb.tids)], G
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [dict(with_nt=True), dict(with_nt=False), dict(probe_wmax=True)],
+                         ids=["with_nt", "no_nt", "probe_wmax"])
+@pytest.mark.parametrize("T,ntx,budget,K", [(40, 8, 96, 128), (160, 16, 128, 256)])
+def test_packed_kernels_match_plain(cuda_device, flags, T, ntx, budget, K):
+    args, G = _packed_block(T, ntx, budget, K, T + K, cuda_device)
+    acc, trans, nt = rc.packed_blend_forward(*args, G, ntx, **flags)
+    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, ntx, **flags)
+    torch.testing.assert_close(acc, acc_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(trans, trans_p, atol=1e-5, rtol=0)
+    assert torch.equal(nt, nt_p)
+    assert bool(nt.any()) == (flags != dict(with_nt=False))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
+    dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
+    dtp = rc.packed_blend_backward(*args, acc, trans, dacc, dtrans, G, ntx)
+    dtp_p = rc.packed_blend_backward_plain(*args, acc, trans, dacc, dtrans, G, ntx)
+    _rel_close(dtp, dtp_p, 1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_packed_forward_equals_dense_on_card(cuda_device):
+    """Plain grouping and a budget that does not bind: the packed kernel's
+    acc and trans equal the dense kernel's bit for bit on the same slots."""
+    T, ntx, K = 64, 8, 128
+    tp, counts, _ = _random_block(K, T, 9, cuda_device, ntx)
+    args, G = _packed_block(T, ntx, K, K, 9, cuda_device, sort_by_depth=False)
+    acc_p, trans_p, _ = rc.packed_blend_forward(*args, G, ntx)
+    acc_d, trans_d, _ = rc.blend_forward(tp, counts, ntx)
+    assert torch.equal(rc._from_group_major(acc_p, G), acc_d)
+    assert torch.equal(rc._from_group_major(trans_p, G), trans_d)
+
+
 @pytest.mark.cuda
 def test_blend_autograd_on_card_matches_cpu(cuda_device):
     tp, counts, ntx = _random_block(64, 24, 5, "cpu")
@@ -115,7 +171,12 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
     acc, trans, _ = rc.blend_forward(tp, counts, ntx)
     rc.blend_backward(tp, counts, acc, trans, torch.ones_like(acc), torch.ones_like(trans), ntx)
     rc.median_depth(tp, counts, ntx)
-    assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1, 1, 1]
+    args, G = _packed_block(24, 8, 64, 64, 3, cuda_device)
+    acc, trans, _ = rc.packed_blend_forward(*args, G, 8)
+    rc.packed_blend_backward(*args, acc, trans, torch.ones_like(acc), torch.ones_like(trans), G, 8)
+    assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1, 1, 1, 1, 1]
+    with pytest.raises(ValueError):
+        rc.packed_blend_forward(args[0], args[1].long(), *args[2:], G, 8)
     with pytest.raises(ValueError):
         rc.blend_forward(tp, counts.long(), ntx)
     with pytest.raises(ValueError):
@@ -131,6 +192,10 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     acc_p, trans_p, nt_p = rc.blend_forward_plain(tp, counts, ntx)
     assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
     rc.median_depth(tp, counts, ntx)
+    args, G = _packed_block(24, 8, 64, 64, 4, "cpu")
+    acc, trans, nt = rc.packed_blend_forward(*args, G, 8)
+    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, 8)
+    assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
     assert [w.launches.count for w in rc.KERNEL_WRAPPERS] == before
     with pytest.raises(ValueError, match="device"):
         rc.blend_forward(tp.to("meta"), counts.to("meta"), ntx)

@@ -460,8 +460,8 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
-    asks = [("Performance", "packed_tracking_budget", 96, "A9"),
-            ("Performance", "packed_mapping_budget", 128, "A9"),
+    asks = [("Performance", "blend_bf16", True, "B4-bf16"),
+            ("Performance", "bin_active_bucket", True, "C4"),
             ("Training", "track_pyramid", True, "A6"),
             ("Results", "global_BA", True, "A7"),
             ("dynamic_filtering", "enabled", True, "A11"),
