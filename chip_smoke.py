@@ -5,22 +5,30 @@
 
 Phases, each of which must pass:
 1. build the CUDA kernels from lvdgs_torch/csrc with nvcc (one nvcc per
-   source and build, all at once);
+   source and build, all at once: blend.cu, blend_packed.cu, resident.cu);
 2. hold each kernel against its plain PyTorch version on the card at the
    street-scene shapes (1226x370 -> 77x24 = 1848 tiles, 256 slots per
    tile; packed: 116 groups of 16 tiles, NB = 348, 464 and 928 chunks for
-   the tracking, mapping and probe budgets), and time both with CUDA
-   events; show that the packed blend equals the dense one bit for bit
-   where its budget does not bind; and check the card's render of a small
-   scene against the CPU render and the NumPy oracle;
+   the tracking, mapping and probe budgets; the bf16 packed kernels at NB
+   348 and 464, and against the float32 ones at the reference's bar), and
+   the resident-table kernels at the probe tool's shapes (2^17 rows, 1848
+   tiles in groups of 8, 256 slots), and time each with CUDA events beside
+   its plain version (and, for the resident kernels, the library call that
+   computes the same function); show that the packed blend equals the dense
+   one bit for bit where its budget does not bind; and check the card's
+   render of a small scene against the CPU render and the NumPy oracle;
 3. drive the SLAM loop (SLAM.run) on configs/mono/synthetic/street.yaml at
-   full width twice: as configured (packed tracking at 96 and mapping at
-   128 slots per tile, with saturation feedback), which must launch B1, B3,
-   B4 and B5, and dense (budgets 0, as many frames), which must launch B1,
-   B2 and B3; each must end with finite poses and map, at least 2
-   keyframes after init, ATE RMSE < 0.08 m and PSNR > 17 dB; then hold the
-   kernels against their plain versions again on the slots the packed run's
-   final map gives from its newest keyframe;
+   full width three times: as configured (packed tracking at 96 and mapping
+   at 128 slots per tile, with saturation feedback), which must launch B1,
+   B3, B4 and B5; with Performance.blend_bf16, which must launch B4-bf16 and
+   B5-bf16 and no float32 B5; and dense (budgets 0), which must launch B1, B2
+   and B3; each must end with finite poses and map, at least 2 keyframes
+   after init, ATE RMSE < 0.08 m and PSNR > 17 dB; then hold the kernels
+   against their plain versions again on the slots the packed run's final
+   map gives from its newest keyframe, and its bf16 renders against the
+   float32 ones from every keyframe by the reference's own measure (image
+   and parameter gradients); then drive the resident-table probe
+   (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
 4. print the per-kernel JSON line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
@@ -30,37 +38,57 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and FP32 (non-tensor)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # FP32 operations per (pixel, marched slot), counted from the kernel source
 # (blend.cu): alpha = 16 (2 sub, 9 mul/add for the conic power, exp, the
 # opacity product, 3 compares/min), then per kernel:
 OPS_FWD = 16 + 1 + 8 + 2  # weight, 4 colour/depth multiply-adds, transmittance
 OPS_BWD = 16 + 1 + 8 + 2 + 30 + 4 + 25 + 10  # + dL/dalpha, gates, 10 grads, reductions
 OPS_MED = 16 + 2 + 2  # transmittance, crossing test
+# the bf16 variants do the alpha's 16 operations and 2 more subtractions
+# (tile-local coordinates) in bfloat16, counted at the card's bf16 rate
+# outside the tensor cores, and the rest of each kernel in FP32. The 19
+# roundings per pixel and slot with which this design emulates bf16
+# arithmetic (blend_common.cuh, eval_slot_bf16) belong to the design, not
+# to the function, and are not counted.
+OPS_ALPHA = 16
+OPS_BF16_WEIGHT = OPS_ALPHA + 2
 
+# each kernel's pallas_call site
+_PALLAS = "lvdgs_tpu/ops/rasterizer_pallas.py"
 REPLACES = {
-    "blend_forward": "lvdgs_tpu/ops/rasterizer_pallas.py:86",
-    "blend_backward": "lvdgs_tpu/ops/rasterizer_pallas.py:136",
-    "median_depth": "lvdgs_tpu/ops/rasterizer_pallas.py:310",
-    "packed_blend_forward": "lvdgs_tpu/ops/rasterizer_pallas.py:466",
-    "packed_blend_backward": "lvdgs_tpu/ops/rasterizer_pallas.py:569",
+    "blend_forward": f"{_PALLAS}:247",
+    "blend_backward": f"{_PALLAS}:292",
+    "median_depth": f"{_PALLAS}:375",
+    "packed_blend_forward": f"{_PALLAS}:730",
+    "packed_blend_backward": f"{_PALLAS}:780",
+    "packed_blend_forward_bf16": f"{_PALLAS}:730",
+    "packed_blend_backward_bf16": f"{_PALLAS}:780",
+    "resident_gather": "tools/perf_resident.py:71",
+    "resident_scatter": "tools/perf_resident.py:100",
 }
 # the TPU kernels' names in ROADMAP.md and PERF.md
 KERNEL_IDS = {"blend_forward": "B1", "blend_backward": "B2", "median_depth": "B3",
-              "packed_blend_forward": "B4", "packed_blend_backward": "B5"}
-SOURCES = {"blend_forward": "lvdgs_torch/csrc/blend.cu", "blend_backward": "lvdgs_torch/csrc/blend.cu",
-           "median_depth": "lvdgs_torch/csrc/blend.cu",
-           "packed_blend_forward": "lvdgs_torch/csrc/blend_packed.cu",
-           "packed_blend_backward": "lvdgs_torch/csrc/blend_packed.cu"}
+              "packed_blend_forward": "B4", "packed_blend_backward": "B5",
+              "packed_blend_forward_bf16": "B4-bf16", "packed_blend_backward_bf16": "B5-bf16",
+              "resident_gather": "R1", "resident_scatter": "R2"}
+_CSRC = "lvdgs_torch/csrc"
+SOURCES = {"blend_forward": f"{_CSRC}/blend.cu", "blend_backward": f"{_CSRC}/blend.cu",
+           "median_depth": f"{_CSRC}/blend.cu",
+           "packed_blend_forward": f"{_CSRC}/blend_packed.cu",
+           "packed_blend_backward": f"{_CSRC}/blend_packed.cu",
+           "packed_blend_forward_bf16": f"{_CSRC}/blend_packed.cu",
+           "packed_blend_backward_bf16": f"{_CSRC}/blend_packed.cu",
+           "resident_gather": f"{_CSRC}/resident.cu", "resident_scatter": f"{_CSRC}/resident.cu"}
+# the reference's bar for bf16 weight math against float32
+# (tests/test_rasterizer_pallas.py::test_blend_bf16_close_to_f32)
+BF16_PIXEL_ERR, BF16_PSNR, BF16_GRAD_COS = 0.02, 45.0, 0.999
 # limits of the SLAM runs (tests/test_e2e_synthetic.py)
 ATE_LIMIT, PSNR_LIMIT = 0.08, 17.0
 TG = 16  # tiles per group of the packed layout
@@ -69,38 +97,6 @@ TG = 16  # tiles per group of the packed layout
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
-    """Median over `reps` CUDA-event timings, after warm-up, of `inner`
-    back-to-back calls of fn(), per call (several calls per event pair keep
-    the events' own overhead out of a short kernel's time)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    times.sort()
-    return times[len(times) // 2]
 
 
 def street_block(K: int, T: int, ntx: int, seed: int, device):
@@ -147,12 +143,6 @@ def marched_slots(tp, counts, ntx: int, threshold: float) -> int:
     return int(total)
 
 
-def bound_ms(bytes_moved: float, ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def errors(name: str, out, ref) -> tuple[float, float]:
     """(max abs error, the error held against the tolerance) of one
     kernel's outputs against its plain version's. The backward's per-slot
@@ -171,6 +161,7 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
     kernels timed again as built with multiply-add contraction."""
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.tools.timing import bound_ms, time_ms
 
     K, T, _ = tp.shape
     g = torch.Generator(device=tp.device).manual_seed(1)
@@ -280,13 +271,19 @@ def packed_marched_slots(args, G: int, ntx: int) -> int:
     return int(total)
 
 
-def check_packed(args, G: int, ntx: int, label: str, timing: bool = True) -> dict:
+def check_packed(args, G: int, ntx: int, label: str, timing: bool = True, bf16: bool = True,
+                 bf16_gate: bool = True) -> dict:
     """B4 (with touch counts, without, and as the probe) and B5 against their
-    plain versions on one packed block, with a random cotangent for B5;
-    then each timed against its plain version, and against the build with
-    multiply-add contraction."""
+    plain versions on one packed block, with a random cotangent for B5, and
+    (`bf16`) B4-bf16 (with and without counts) and B5-bf16 against theirs,
+    bit for bit and within 1e-5 of each field's largest gradient; then each
+    timed against its plain version, and against the build with
+    multiply-add contraction; then the bf16 kernels against the float32
+    ones on the block's slots (held to the reference's bar with
+    `bf16_gate`, else printed only)."""
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.tools.timing import bound_ms, time_ms
 
     tp, cg, k0, goff, tids = args
     NB, _, tg, _ = tp.shape
@@ -298,57 +295,76 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True) -> dic
     dtrans = torch.randn(trans.shape, generator=g, device=dev)
     out_bytes = (acc.numel() + trans.numel()) * 4
     idx_bytes = (cg.numel() + tids.numel() + 1) * 4
+    nt_bytes = NB * rc.KC * tg * 4
+    fwd, fwd_plain = rc.packed_blend_forward, rc.packed_blend_forward_plain
+    bwd, bwd_plain = rc.packed_blend_backward, rc.packed_blend_backward_plain
     cases = {
-        "B4 with_nt": (rc.packed_blend_forward, rc.packed_blend_forward_plain,
-                       dict(with_nt=True), (), OPS_FWD, out_bytes + NB * rc.KC * tg * 4),
-        "B4 no_nt": (rc.packed_blend_forward, rc.packed_blend_forward_plain,
-                     dict(with_nt=False), (), OPS_FWD, out_bytes + NB * rc.KC * tg * 4),
-        "B4 probe_wmax": (rc.packed_blend_forward, rc.packed_blend_forward_plain,
-                          dict(probe_wmax=True), (), OPS_FWD, out_bytes + NB * rc.KC * tg * 4),
-        "B5": (rc.packed_blend_backward, rc.packed_blend_backward_plain, {},
-               (acc, trans, dacc, dtrans), OPS_BWD, 2 * out_bytes + NB * rc.KC * tg * rc.NF * 4),
+        "B4 with_nt": (fwd, fwd_plain, dict(with_nt=True), {}, (), (OPS_FWD, 0), out_bytes + nt_bytes),
+        "B4 no_nt": (fwd, fwd_plain, dict(with_nt=False), {}, (), (OPS_FWD, 0), out_bytes + nt_bytes),
+        "B4 probe_wmax": (fwd, fwd_plain, dict(probe_wmax=True), {}, (), (OPS_FWD, 0),
+                          out_bytes + nt_bytes),
+        "B5": (bwd, bwd_plain, {}, {}, (acc, trans, dacc, dtrans), (OPS_BWD, 0),
+               2 * out_bytes + nt_bytes * rc.NF),
     }
+    if bf16:
+        # B5-bf16 takes B4-bf16's outputs, as the autograd Function gives them
+        acc_b, trans_b, _ = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=False)
+        bf16_fwd_ops = (OPS_FWD - OPS_ALPHA, OPS_BF16_WEIGHT)
+        cases.update({
+            "B4-bf16 with_nt": (rc.packed_blend_forward_bf16, fwd_plain, dict(with_nt=True),
+                                dict(bf16=True), (), bf16_fwd_ops, out_bytes + nt_bytes),
+            "B4-bf16 no_nt": (rc.packed_blend_forward_bf16, fwd_plain, dict(with_nt=False),
+                              dict(bf16=True), (), bf16_fwd_ops, out_bytes + nt_bytes),
+            "B5-bf16": (rc.packed_blend_backward_bf16, bwd_plain, {}, dict(bf16=True),
+                        (acc_b, trans_b, dacc, dtrans), (OPS_BWD - OPS_ALPHA, OPS_BF16_WEIGHT),
+                        2 * out_bytes + nt_bytes * rc.NF),
+        })
     report = {}
-    for case, (wrapper, plain, kw, extra, ops, io_bytes) in cases.items():
+    for case, (wrapper, plain, kw, plain_kw, extra, ops, io_bytes) in cases.items():
         call_args = (*args, *extra, G, ntx)
         out = wrapper(*call_args, **kw)
-        ref = plain(*call_args, **kw)
+        ref = plain(*call_args, **kw, **plain_kw)
         torch.cuda.synchronize()
-        if case == "B5":
+        if case.startswith("B5"):
             err = errors("blend_backward", out, ref)
             ok = err[1] <= 1e-5
             what = "of each field's largest gradient"
         else:
             err = errors("blend_forward", out[:2], ref[:2])
             nt_equal = bool(torch.equal(out[2], ref[2]))
-            ok = err[1] <= 1e-5 and nt_equal
-            what = f"absolute, per-slot {'weights' if 'probe' in case else 'counts'} equal: {nt_equal}"
+            # the bf16 forward rounds where its plain version does: bit for bit
+            ok = (err[1] == 0.0 if "bf16" in case else err[1] <= 1e-5) and nt_equal
+            what = (f"{'bit for bit' if 'bf16' in case else 'absolute'}, per-slot "
+                    f"{'weights' if 'probe' in case else 'counts'} equal: {nt_equal}")
+        tol = "0" if "B4-bf16" in case else "1e-05"
         print(f"kernel {case} [{label}, NB {NB}]: max_abs_err {err[0]:.3e}, error {err[1]:.3e} against a "
-              f"tolerance of 1e-05 ({what}) {'ok' if ok else 'DISAGREES'}", flush=True)
+              f"tolerance of {tol} ({what}) {'ok' if ok else 'DISAGREES'}", flush=True)
         if not ok:
             fail(f"{case} disagrees with its plain version on {label}")
         r = {"max_abs_err": err[0]}
         if timing:
             r["ms"] = time_ms(lambda: wrapper(*call_args, **kw), reps=10, inner=20)
-            r["plain_ms"] = time_ms(lambda: plain(*call_args, **kw), reps=5, warmup=1)
+            r["plain_ms"] = time_ms(lambda: plain(*call_args, **kw, **plain_kw), reps=5, warmup=1)
             r["bound_ms"], r["bound_by"] = bound_ms(marched * rc.NF * 4 + idx_bytes + io_bytes,
-                                                    marched * rc.P * ops)
+                                                    marched * rc.P * ops[0], marched * rc.P * ops[1])
             # the contracted build, on the same inputs, in turns with the shipped one
             fmad = rc._library(fmad=True)
             outs = [torch.empty_like(o) for o in (out if isinstance(out, tuple) else (out,))]
             ptrs = [x.data_ptr() for x in (tp, cg, tids, goff, *extra, *outs)]
-            if case == "B5":
-                def call():
-                    rc._check_launch(fmad.lvdgs_packed_bwd(*ptrs, NB, G, tg, ntx, rc._stream()), case)
+            if case.startswith("B5"):
+                fn = fmad.lvdgs_packed_bwd_bf16 if "bf16" in case else fmad.lvdgs_packed_bwd
+
+                def call(fn=fn, ptrs=ptrs, case=case):
+                    rc._check_launch(fn(*ptrs, NB, G, tg, ntx, rc._stream()), case)
             else:
+                fn = fmad.lvdgs_packed_fwd_bf16 if "bf16" in case else fmad.lvdgs_packed_fwd
                 mode = 2 if "probe" in case else (1 if kw.get("with_nt") else 0)
 
-                def call():
-                    rc._check_launch(fmad.lvdgs_packed_fwd(*ptrs, NB, G, tg, ntx, mode, rc._stream()),
-                                     case)
+                def call(fn=fn, ptrs=ptrs, case=case, mode=mode):
+                    rc._check_launch(fn(*ptrs, NB, G, tg, ntx, mode, rc._stream()), case)
             call()
             torch.cuda.synchronize()
-            if case == "B5":
+            if case.startswith("B5"):
                 fmad_err = errors("blend_backward", outs[0], ref)[1]
             else:
                 fmad_err = errors("blend_forward", outs[:2], ref[:2])[1]
@@ -359,7 +375,88 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True) -> dic
                   f"multiply-add contraction {fmad_ms:.4f} ms against {r['ms']:.4f} / {again_ms:.4f} ms "
                   f"as shipped, error {fmad_err:.3e}", flush=True)
         report[case] = r
+    if bf16:
+        check_bf16_against_f32(args, G, ntx, (acc, trans), (acc_b, trans_b), dacc, dtrans,
+                               f"{label}, NB {NB}", gate=bf16_gate)
     return report
+
+
+def check_bf16_against_f32(args, G: int, ntx: int, f32_out, bf16_out, dacc, dtrans, label: str,
+                           gate: bool = True) -> None:
+    """B4-bf16 against B4 and B5-bf16 against B5 on one block of slots: the
+    colour channels (the image on a black background) within BF16_PIXEL_ERR
+    and above BF16_PSNR, and each slot field's gradient, under the same
+    random cotangent, at a cosine above BF16_GRAD_COS with the float32 one.
+    With `gate` a miss fails. The opacity field's cosine is also printed
+    apart for the slots whose opacity can reach the ALPHA_MAX clamp after
+    bf16 rounding (>= 0.98) and for the rest."""
+    import torch
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+
+    (acc, trans), (acc_b, trans_b) = f32_out, bf16_out
+    diff = acc_b[:G, :3] - acc[:G, :3]
+    pixel_err = float(diff.abs().max())
+    psnr = 10.0 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
+    d32 = rc.packed_blend_backward(*args, acc, trans, dacc, dtrans, G, ntx)
+    db = rc.packed_blend_backward_bf16(*args, acc_b, trans_b, dacc, dtrans, G, ntx)
+    cos = [float(torch.nn.functional.cosine_similarity(d32[..., f].reshape(-1), db[..., f].reshape(-1),
+                                                       dim=0)) for f in range(rc.NF)]
+    near = args[0][..., 9] >= 0.98
+    op_cos = [float(torch.nn.functional.cosine_similarity(d32[..., 9][m], db[..., 9][m], dim=0))
+              if bool(m.any()) else float("nan") for m in (~near, near)]
+    ok = pixel_err < BF16_PIXEL_ERR and psnr > BF16_PSNR and min(cos) > BF16_GRAD_COS
+    verdict = ("ok" if ok else "FAILS") if gate else "printed only"
+    print(f"bf16 against float32 [{label}]: pixel error {pixel_err:.4e} (< {BF16_PIXEL_ERR}), PSNR "
+          f"{psnr:.3f} dB (> {BF16_PSNR}), smallest slot-field gradient cosine {min(cos):.6f} "
+          f"(> {BF16_GRAD_COS}; field {cos.index(min(cos))}) {verdict}; opacity-field cosine "
+          f"{op_cos[0]:.6f} over slots of opacity < 0.98, {op_cos[1]:.6f} over the {int(near.sum())} "
+          f"at or above", flush=True)
+    if gate and not ok:
+        fail(f"the bf16 packed kernels miss the reference's bar against float32 on {label}")
+
+
+def check_bf16_main_path(slam) -> None:
+    """The reference's bar for bf16 weight math
+    (tests/test_rasterizer_pallas.py::test_blend_bf16_close_to_f32), on the
+    main path's scene: the packed run's final map rendered from each of its
+    keyframes with the tracking and the mapping config, in float32 and in
+    bf16 on the same bins. The images within BF16_PIXEL_ERR and above
+    BF16_PSNR; the gradients of the reference's loss, opacity * |image -
+    0.4|, with respect to the map's means, log-scales, logit-opacities and
+    colours at a cosine above BF16_GRAD_COS."""
+    import dataclasses
+
+    import torch
+    from lvdgs_torch.ops import rasterizer as tr
+
+    p, active = slam.gmap.params(), slam.gmap.active
+    for kf in slam.kf_indices:
+        slot = slam.kf_slots[kf]
+        R, T = slam.kfbuf.R[slot], slam.kfbuf.T[slot]
+        for name, cfg in (("tracking", slam.rcfg_track), ("mapping", slam.rcfg_map)):
+            bins = tr.prepare_bins(p, active, R, T, slam.intr, cfg)
+            outs = []
+            for bf16 in (False, True):
+                q = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+                out = tr.rasterize(q, active, R, T, slam.intr, dataclasses.replace(cfg, blend_bf16=bf16),
+                                   bins=bins, need_n_touched=False)
+                (out.opacity * (out.image - 0.4).abs()).mean().backward()
+                outs.append((out.image.detach(), {k: v.grad for k, v in q.items()}))
+            (img_a, grad_a), (img_b, grad_b) = outs
+            diff = img_b - img_a
+            pixel_err = float(diff.abs().max())
+            psnr = 10.0 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
+            cos = {k: float(torch.nn.functional.cosine_similarity(grad_a[k].reshape(-1),
+                                                                  grad_b[k].reshape(-1), dim=0))
+                   for k in ("means", "log_scales", "logit_opacities", "features_dc")}
+            ok = pixel_err < BF16_PIXEL_ERR and psnr > BF16_PSNR and min(cos.values()) > BF16_GRAD_COS
+            print(f"bf16 against float32 [main path, keyframe {kf}, {name} config]: pixel error "
+                  f"{pixel_err:.4e} (< {BF16_PIXEL_ERR}), PSNR {psnr:.3f} dB (> {BF16_PSNR}), gradient "
+                  f"cosines {', '.join(f'{k} {v:.6f}' for k, v in cos.items())} (> {BF16_GRAD_COS}) "
+                  f"{'ok' if ok else 'FAILS'}", flush=True)
+            if not ok:
+                fail(f"the bf16 renders miss the reference's bar against float32 on the main path, "
+                     f"keyframe {kf}, {name} config")
 
 
 def check_packed_equals_dense(tp, counts, ntx: int) -> None:
@@ -454,9 +551,67 @@ def small_render_check(device) -> None:
               f"(4e-3) ok", flush=True)
 
 
-def run_slam(device, frames: int, packed: bool):
+def check_resident(device) -> dict:
+    """R1 and R2 against their plain versions at the probe tool's shapes
+    (lvdgs_torch.tools.perf_resident, seed 0): R1 bit for bit, R2 within
+    SCATTER_TOL of the table's largest magnitude (atomics add in any
+    order); each timed beside its plain version and the one library call
+    that computes the same function (embedding_bag sum over the
+    per-(group, lane) bags, index_add_)."""
+    from lvdgs_torch.ops import resident_cuda as rs
+    from lvdgs_torch.tools import perf_resident as pr
+    from lvdgs_torch.tools.timing import time_ms
+
+    idx, fields, upd = pr.make_inputs(pr.C, pr.T, pr.K, pr.TG, device)
+    rows = fields.shape[0]
+    ops = pr.calls(idx, fields, upd)
+    err = pr.check(idx, fields, upd, ops)  # raises where a kernel disagrees
+    bnd = pr.bounds(idx, fields)
+    G, K, TG = idx.shape
+    print(f"resident kernels at C={pr.C}, G={G}, K={K}, TG={TG} ({idx.numel()} slots, "
+          f"{bnd['distinct_rows']} distinct rows): R1 error {err['gather']:.3e} (bit for bit), R2 error "
+          f"{err['scatter_rel']:.3e} of the table's largest magnitude (tolerance {pr.SCATTER_TOL:.0e}) ok; "
+          f"library calls against the kernels: embedding_bag {err['embedding_bag sum']:.3e}, index_add_ "
+          f"{err['index_add_ scatter']:.3e}", flush=True)
+    report = {}
+    for name, key, plain, library in (
+            ("resident_gather", "gather", lambda: rs.resident_gather_plain(idx, fields), "embedding_bag sum"),
+            ("resident_scatter", "scatter", lambda: rs.resident_scatter_plain(idx, upd, rows),
+             "index_add_ scatter")):
+        r = {"max_abs_err": err[key]}
+        r["ms"] = time_ms(ops[key], reps=10, inner=20)
+        r["plain_ms"] = time_ms(plain, reps=10, warmup=1)
+        r["library_ms"] = time_ms(ops[library], reps=10, inner=20)
+        r["bound_ms"], r["bound_by"] = bnd[key]
+        print(f"kernel {name}: {r['ms']:.4f} ms ({r['ms'] * 1e6 / idx.numel():.3f} ns per slot), plain "
+              f"{r['plain_ms']:.3f} ms, {library} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+        report[name] = r
+    return report
+
+
+def run_resident_probe() -> dict:
+    """Phase 3: the resident-table probe's entry point, as a user runs it
+    (python -m lvdgs_torch.tools.perf_resident), with the launch counts
+    set to 0 just before it and read just after."""
+    from lvdgs_torch.ops import resident_cuda as rs
+    from lvdgs_torch.tools import perf_resident as pr
+
+    for w in rs.KERNEL_WRAPPERS:
+        w.launches.reset()
+    pr.main([])
+    launches = {w.__name__: w.launches.count for w in rs.KERNEL_WRAPPERS}
+    print(f"launches on the resident-probe path: {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was never launched on the resident-probe path")
+    return launches
+
+
+def run_slam(device, frames: int, packed: bool, bf16: bool = False):
     """Phase 3: the SLAM main path on the street scene, as configured
-    (packed) or with both packed budgets at 0 (dense)."""
+    (packed), as configured with blend_bf16 (bf16), or with both packed
+    budgets at 0 (dense)."""
     import numpy as np
     import torch
 
@@ -465,12 +620,13 @@ def run_slam(device, frames: int, packed: bool):
     from lvdgs_torch.ops import rasterizer_cuda as rc
     from lvdgs_torch.slam.system import SLAM
 
-    label = "packed" if packed else "dense"
+    label = ("packed bf16" if bf16 else "packed") if packed else "dense"
     config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
     perf = config["Performance"]
     if not packed:
         perf["packed_tracking_budget"] = 0
         perf["packed_mapping_budget"] = 0
+    perf["blend_bf16"] = bf16
     perf["synced_timers"] = True
     config["Training"]["mono_scale_servo"] = False
     config["Results"]["eval_rendering"] = True
@@ -484,8 +640,10 @@ def run_slam(device, frames: int, packed: bool):
     print(f"{label} path: street.yaml at {cal['width']}x{cal['height']}, max_per_tile "
           f"{perf['max_per_tile']}, map_capacity {perf['map_capacity']}, kf_capacity "
           f"{perf['kf_capacity']}, window_size {config['Training']['window_size']}, packed budgets "
-          f"{budgets}, mono_scale_servo False", flush=True)
-    if packed != slam.rcfg_track.use_packed or packed != slam.rcfg_map.use_packed:
+          f"{budgets}, blend_bf16 {bf16}, mono_scale_servo False", flush=True)
+    if (packed != slam.rcfg_track.use_packed or packed != slam.rcfg_map.use_packed
+            or bf16 != slam.rcfg_track.blend_bf16 or bf16 != slam.rcfg_map.blend_bf16
+            or slam.rcfg.blend_bf16):
         fail(f"the {label} run does not render as asked")
     if frames != n_frames_full:
         print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
@@ -512,8 +670,16 @@ def run_slam(device, frames: int, packed: bool):
 
     if n_after_init < 2:
         fail(f"{label} path: only {n_after_init} keyframes after init; the path needs at least 2")
-    must = (("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_backward") if packed
-            else ("blend_forward", "blend_backward", "median_depth"))
+    if bf16:
+        # B4 in float32 still runs, as the saturation probe
+        must = ("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_forward_bf16",
+                "packed_blend_backward_bf16")
+        if launches["packed_blend_backward"] != 0:
+            fail(f"the float32 B5 was launched on the {label} path")
+    elif packed:
+        must = ("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_backward")
+    else:
+        must = ("blend_forward", "blend_backward", "median_depth")
     for name in must:
         if launches[name] == 0:
             fail(f"kernel {name} was never launched on the {label} path")
@@ -588,6 +754,8 @@ def main_path_packed_blocks(slam):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=20, help="street frames of the packed run")
+    parser.add_argument("--bf16-frames", type=int, default=20,
+                        help="street frames of the packed run with blend_bf16")
     parser.add_argument("--dense-frames", type=int, default=20,
                         help="street frames of the dense run (11 give only 1 keyframe after init)")
     args = parser.parse_args()
@@ -602,6 +770,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    from lvdgs_torch.tools.timing import card_line
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
@@ -628,38 +798,56 @@ def main() -> None:
     for budget, sort in ((96, True), (128, True), (256, False)):
         pargs, G = packed_from_dense(tp, counts, budget, sort, seed=budget)
         label = f"random street-shaped slots, budget {budget}, {'sorted with caps' if sort else 'plain'}"
-        packed_report[budget] = check_packed(pargs, G, ntx, label)
+        # the bf16 kernels at the tracking and mapping budgets (the probe
+        # has no bf16 form)
+        packed_report[budget] = check_packed(pargs, G, ntx, label, bf16=sort)
     check_packed_equals_dense(tp, counts, ntx)
     small_render_check(device)
+    resident_report = check_resident(device)
+    torch.cuda.empty_cache()
 
     # phase 3
     check_default_budgets(device)
     launches = {}
-    for packed, frames in ((True, args.frames), (False, args.dense_frames)):
-        run_launches, slam = run_slam(device, frames, packed)
+    for packed, bf16, frames in ((True, False, args.frames), (True, True, args.bf16_frames),
+                                 (False, False, args.dense_frames)):
+        run_launches, slam = run_slam(device, frames, packed, bf16)
         for name, n in run_launches.items():
             launches[name] = launches.get(name, 0) + n
-        if packed:
+        if packed and not bf16:
             packed_slam = slam
+        del slam
+        torch.cuda.empty_cache()
     # the same checks on the slots the packed path blends (printed only)
     check_kernels(*main_path_block(packed_slam), "main-path slots")
     blocks, G, bntx = main_path_packed_blocks(packed_slam)
     for name, pargs in blocks:
-        check_packed(pargs, G, bntx, f"main-path slots, {name}", timing=(name == "tracking"))
-    del packed_slam
+        # on the map's slots, bf16 against float32 is held by the reference's
+        # own measure (check_bf16_main_path), which bounds the image and the
+        # map parameters' gradients; the slot-field measure is printed
+        check_packed(pargs, G, bntx, f"main-path slots, {name}", timing=(name == "tracking"),
+                     bf16=(name != "probe"), bf16_gate=False)
+    check_bf16_main_path(packed_slam)
+    del packed_slam, blocks
+    torch.cuda.empty_cache()
+    launches.update(run_resident_probe())
 
-    # B4 and B5 in the JSON line: the tracking budget's shape (NB 348), B4
-    # without touch counts, as tracking and mapping launch it
+    # B4 and B5 (and their bf16 variants) in the JSON line: the tracking
+    # budget's shape (NB 348), B4 without touch counts, as tracking and
+    # mapping launch it
     track = packed_report[96]
     report["packed_blend_forward"] = track["B4 no_nt"]
     report["packed_blend_backward"] = track["B5"]
+    report["packed_blend_forward_bf16"] = track["B4-bf16 no_nt"]
+    report["packed_blend_backward_bf16"] = track["B5-bf16"]
+    report.update(resident_report)
     kernels = []
     for name, r in report.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "id": KERNEL_IDS[name], "status": "ported",
+            "library_ms": r.get("library_ms"), "id": KERNEL_IDS[name], "status": "ported",
         })
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

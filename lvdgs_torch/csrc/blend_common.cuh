@@ -1,9 +1,11 @@
 // Device code shared by the dense (blend.cu) and packed (blend_packed.cu)
 // tile blend kernels: the constants of the blend, one slot's alpha at one
-// pixel, and a warp sum. Every kernel that replays another's transmittance
-// chain evaluates slots through eval_slot, so the chains agree bit for bit.
+// pixel (in float32, and with the weight math in bfloat16), and a warp sum.
+// Every kernel that replays another's transmittance chain evaluates slots
+// through the same function, so the chains agree bit for bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +31,32 @@ __device__ __forceinline__ SlotEval eval_slot(const float* p, float px, float py
   const float power = -0.5f * (p[2] * e.dx * e.dx + p[4] * e.dy * e.dy) - p[3] * e.dx * e.dy;
   e.G = expf(power);
   e.raw = p[9] * e.G;
+  e.alpha = (power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
+  return e;
+}
+
+// x rounded to bfloat16 (nearest even) and widened back.
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// eval_slot with the weight math in bfloat16, as the Pallas packed kernels'
+// bf16 variant (rasterizer_pallas.py, _make_packed_fwd_kernel and the
+// backward's weight replay): coordinates relative to the tile origin
+// (ox, oy), (pxl, pyl) the pixel's offset in its tile (bf16-exact); every
+// operation of the Pallas bf16 expression is one float32 operation rounded
+// once, which is what a bf16 operation on bf16 operands gives (a product of
+// two bf16 values is exact in float32). exp runs on the widened power.
+// alpha and the returned G, dx, dy are float32 values of bf16 numbers; the
+// ok test compares the rounded power in float32.
+__device__ __forceinline__ SlotEval eval_slot_bf16(const float* p, float pxl, float pyl, float ox,
+                                                   float oy) {
+  SlotEval e;
+  e.dx = bf(pxl - bf(p[0] - ox));
+  e.dy = bf(pyl - bf(p[1] - oy));
+  const float ca = bf(p[2]), cb = bf(p[3]), cc = bf(p[4]);
+  const float quad = bf(bf(bf(ca * e.dx) * e.dx) + bf(bf(cc * e.dy) * e.dy));
+  const float power = bf(bf(-0.5f * quad) - bf(bf(cb * e.dx) * e.dy));
+  e.G = bf(expf(power));
+  e.raw = bf(bf(p[9]) * e.G);
   e.alpha = (power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
   return e;
 }

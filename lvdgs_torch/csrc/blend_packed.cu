@@ -4,11 +4,18 @@
 // the plain PyTorch versions, whose expressions the code below follows in
 // the same order) into its own plain-C shared library, loaded with ctypes.
 //
-// Replaces, from lvdgs_tpu/ops/rasterizer_pallas.py (float32 variants):
-//   lvdgs_packed_fwd <- _make_packed_fwd_kernel (pallas_blend_packed forward,
-//                       and _packed_fwd_call with probe_wmax for the
-//                       saturation-feedback probe)
-//   lvdgs_packed_bwd <- _make_packed_bwd_kernel (pallas_blend_packed VJP)
+// Replaces, from lvdgs_tpu/ops/rasterizer_pallas.py:
+//   lvdgs_packed_fwd      <- _make_packed_fwd_kernel (pallas_blend_packed
+//                            forward, and _packed_fwd_call with probe_wmax
+//                            for the saturation-feedback probe)
+//   lvdgs_packed_bwd      <- _make_packed_bwd_kernel (pallas_blend_packed VJP)
+//   lvdgs_packed_fwd_bf16 <- _make_packed_fwd_kernel with bf16=True
+//   lvdgs_packed_bwd_bf16 <- _make_packed_bwd_kernel with bf16=True
+// The bf16 variants are the same kernels (template flag BF16) with each
+// slot's weight math in bfloat16 (eval_slot_bf16, blend_common.cuh); the
+// transmittance chain, the accumulations and, in the backward, dL/dalpha
+// and every gradient product stay float32, with the float32 conic. As
+// upstream, the probe (probe_wmax) has no bf16 form.
 //
 // Layouts (as the Pallas kernels): tp is (NB, KC, TG, 10) float32, chunk b
 // holding slots [k0[b], k0[b] + KC) of the TG tiles of group cg[b], fields
@@ -41,7 +48,11 @@
 // practice the per-slot barrier (two in the backward, around its 10-value
 // block reduction) costs more. The design keeps one barrier per slot in the
 // forward and moves no device memory beyond reading tp once and writing each
-// output once.
+// output once. The bf16 variants add 19 roundings per pixel and slot to
+// the same float32 arithmetic: on this card bf16 scalar math saves no FP32
+// work (the TPU's gain was packing two bf16 values per vector lane), so
+// they carry the configuration that asks for the reference's bf16 numbers,
+// not a speed-up; PERF.md has their times beside the float32 kernels'.
 
 #include "blend_common.cuh"
 
@@ -88,6 +99,7 @@ __device__ __forceinline__ void stage_chunk(float* sp, const float* __restrict__
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NPIX)
 packed_fwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
                   const int* __restrict__ tids, const int* __restrict__ goff,
@@ -104,8 +116,9 @@ packed_fwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
   const int b0 = range[0], b1 = range[1];
   bool alive = g < G && b0 < b1;
   const int tid = alive ? tids[(size_t)b0 * TG + lane] + goff[0] : 0;
-  const float px = (float)((tid % ntx) * TS + (lin % TS));
-  const float py = (float)((tid / ntx) * TS + (lin / TS));
+  const float ox = (float)((tid % ntx) * TS), oy = (float)((tid / ntx) * TS);
+  const float pxl = (float)(lin % TS), pyl = (float)(lin / TS);
+  const float px = ox + pxl, py = oy + pyl;
 
   float trans = 1.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f, ad = 0.0f;
   for (int b = b0; b < b1; ++b) {
@@ -121,7 +134,7 @@ packed_fwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
           break;
         }
         const float* p = sp + kc * NF;
-        const SlotEval e = eval_slot(p, px, py);
+        const SlotEval e = BF16 ? eval_slot_bf16(p, pxl, pyl, ox, oy) : eval_slot(p, px, py);
         const float w = (trans > T_EPS) ? e.alpha * trans : 0.0f;
         ar += w * p[5];
         ag += w * p[6];
@@ -151,6 +164,7 @@ packed_fwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
   trans_out[((size_t)g * TG + lane) * NPIX + lin] = trans;
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NPIX)
 packed_bwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
                   const int* __restrict__ tids, const int* __restrict__ goff,
@@ -168,8 +182,9 @@ packed_bwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
   const int b0 = range[0], b1 = range[1];
   bool alive = g < G && b0 < b1;
   const int tid = alive ? tids[(size_t)b0 * TG + lane] + goff[0] : 0;
-  const float px = (float)((tid % ntx) * TS + (lin % TS));
-  const float py = (float)((tid / ntx) * TS + (lin / TS));
+  const float ox = (float)((tid % ntx) * TS), oy = (float)((tid / ntx) * TS);
+  const float pxl = (float)(lin % TS), pyl = (float)(lin / TS);
+  const float px = ox + pxl, py = oy + pyl;
 
   const size_t cstride = (size_t)TG * NPIX;
   const size_t pix = ((size_t)g * 4 * TG + lane) * NPIX + lin;
@@ -193,7 +208,7 @@ packed_bwd_kernel(const float* __restrict__ tp, const int* __restrict__ cg,
           break;
         }
         const float* p = sp + kc * NF;
-        const SlotEval e = eval_slot(p, px, py);
+        const SlotEval e = BF16 ? eval_slot_bf16(p, pxl, pyl, ox, oy) : eval_slot(p, px, py);
         const bool contributes = trans > T_EPS;
         const float w = contributes ? e.alpha * trans : 0.0f;
         pr += w * p[5];
@@ -257,7 +272,16 @@ extern "C" {
 int lvdgs_packed_fwd(const float* tp, const int* cg, const int* tids, const int* goff, float* acc,
                      float* trans, int* nt, int NB, int G, int TG, int ntx, int nt_mode,
                      void* stream) {
-  packed_fwd_kernel<<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
+  packed_fwd_kernel<false><<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
+      tp, cg, tids, goff, acc, trans, nt, NB, G, TG, ntx, nt_mode);
+  return (int)cudaGetLastError();
+}
+
+int lvdgs_packed_fwd_bf16(const float* tp, const int* cg, const int* tids, const int* goff,
+                          float* acc, float* trans, int* nt, int NB, int G, int TG, int ntx,
+                          int nt_mode, void* stream) {
+  if (nt_mode == NT_WMAX) return (int)cudaErrorInvalidValue;  // no bf16 probe
+  packed_fwd_kernel<true><<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
       tp, cg, tids, goff, acc, trans, nt, NB, G, TG, ntx, nt_mode);
   return (int)cudaGetLastError();
 }
@@ -265,7 +289,16 @@ int lvdgs_packed_fwd(const float* tp, const int* cg, const int* tids, const int*
 int lvdgs_packed_bwd(const float* tp, const int* cg, const int* tids, const int* goff,
                      const float* acc, const float* trans, const float* dacc, const float* dtrans,
                      float* dtp, int NB, int G, int TG, int ntx, void* stream) {
-  packed_bwd_kernel<<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
+  packed_bwd_kernel<false><<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
+      tp, cg, tids, goff, acc, trans, dacc, dtrans, dtp, NB, G, TG, ntx);
+  return (int)cudaGetLastError();
+}
+
+int lvdgs_packed_bwd_bf16(const float* tp, const int* cg, const int* tids, const int* goff,
+                          const float* acc, const float* trans, const float* dacc,
+                          const float* dtrans, float* dtp, int NB, int G, int TG, int ntx,
+                          void* stream) {
+  packed_bwd_kernel<true><<<(G + 1) * TG, NPIX, 0, (cudaStream_t)stream>>>(
       tp, cg, tids, goff, acc, trans, dacc, dtrans, dtp, NB, G, TG, ntx);
   return (int)cudaGetLastError();
 }

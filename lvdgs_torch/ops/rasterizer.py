@@ -21,6 +21,8 @@ Port of ``lvdgs_tpu/ops/rasterizer.py``:
    saturated tile at its useful depth and groups tiles of similar depth, so
    the budget goes to the tiles that need it. Tracking renders each rebin
    period linearised in the pose (``pose_lin_gather``, ``rasterize_lin``).
+   With ``blend_bf16`` the packed renders run each slot's weight math in
+   bfloat16 (the probe stays float32, as the reference's does).
 
 Gradients flow to the Gaussian parameters, to (R, t) and to ``vs_offset``,
 a (C, 2) zero tensor in NDC units whose gradient is the screen-space mean
@@ -71,15 +73,15 @@ class RenderConfig:
     saturation_feedback: bool = False
     # per-pixel error tolerance of the feedback cap (one 8-bit LSB)
     feedback_tol: float = 1.0 / 255.0
-    # bf16 weight math in the packed kernels: not ported
+    # bfloat16 weight math in the packed blend kernels (forward and
+    # backward), alpha widened to float32 for the transmittance chain and
+    # the accumulations: the optimiser-facing renders only; the probe and
+    # the dense exact renders stay float32
     blend_bf16: bool = False
 
     def __post_init__(self):
         if self.tile_size != 16:
             raise ValueError("the blend kernels take 16x16 tiles (one thread per pixel)")
-        if self.blend_bf16:
-            raise NotImplementedError(
-                "lvdgs_torch does not carry the bf16 packed blend (ROADMAP B4-bf16, B5-bf16) yet")
 
     def grid(self, intr: Intrinsics):
         ts = self.tile_size
@@ -491,7 +493,7 @@ def _n_touched_packed(gid, nt, C: int) -> torch.Tensor:
 
 
 def _blend_packed(pbins: PackedBins, mean2d, conic, colors, opacities, depth, bg, *, ntx, nty,
-                  tile_group, need_n_touched=True):
+                  tile_group, need_n_touched=True, bf16=False):
     """Packed-kernel blending path: gathers only the budgeted slots
     (differentiable, its transpose the per-Gaussian scatter-add) into
     (NB, KC, TG, 10) chunks for the packed kernels."""
@@ -500,7 +502,7 @@ def _blend_packed(pbins: PackedBins, mean2d, conic, colors, opacities, depth, bg
     G = -(-T // tile_group)
     tp = _gather_rows(_fields(mean2d, conic, colors, opacities, depth), pbins.gid)
     acc, trans, nt = blend_packed(tp, pbins.cg, pbins.k0, _goff(tp.device), pbins.tids, G, ntx,
-                                  need_n_touched)
+                                  need_n_touched, bf16)
     img, depth_t, alpha_t = _packed_to_tiles(acc, trans, pbins.inv, T, bg)
     if need_n_touched:
         n_touched = _n_touched_packed(pbins.gid, nt, C)
@@ -694,7 +696,7 @@ def rasterize_lin(tpj, dtau, intr: Intrinsics, cfg: RenderConfig, bins: PackedBi
     ntx, nty = cfg.grid(intr)
     tp = _linearised_tp(tpj, dtau)
     acc, trans, _nt = blend_packed(tp, bins.cg, bins.k0, _goff(tp.device), bins.tids,
-                                   -(-ntx * nty // cfg.tile_group), ntx, False)
+                                   -(-ntx * nty // cfg.tile_group), ntx, False, cfg.blend_bf16)
     return _render_output(*_packed_to_tiles(acc, trans, bins.inv, ntx * nty,
                                             _background(cfg, tp.device)), intr, cfg)
 
@@ -713,7 +715,8 @@ def rasterize_pose_lin(params, active, R, t, tau, intr: Intrinsics, cfg: RenderC
     tpj = _gather_rows(FJ, bins.gid)
     tp = _linearised_tp(tpj, tau - tau.detach())
     acc, trans, nt = blend_packed(tp, bins.cg, bins.k0, _goff(tp.device), bins.tids,
-                                  -(-ntx * nty // cfg.tile_group), ntx, need_n_touched)
+                                  -(-ntx * nty // cfg.tile_group), ntx, need_n_touched,
+                                  cfg.blend_bf16)
     n_touched = (_n_touched_packed(bins.gid, nt, C) if need_n_touched
                  else torch.zeros(C, dtype=torch.int32, device=nt.device))
     return _render_output(*_packed_to_tiles(acc, trans, bins.inv, ntx * nty,
@@ -761,7 +764,7 @@ def rasterize(
     if packed is not None:
         img_t, depth_t, alpha_t, n_touched = _blend_packed(
             packed, mean2d, proj["conic"], colors, opac, proj["depth"], bg, ntx=ntx, nty=nty,
-            tile_group=cfg.tile_group, need_n_touched=need_n_touched,
+            tile_group=cfg.tile_group, need_n_touched=need_n_touched, bf16=cfg.blend_bf16,
         )
     else:
         img_t, depth_t, alpha_t, n_touched = _blend_dense(

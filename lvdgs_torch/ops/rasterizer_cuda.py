@@ -1,18 +1,25 @@
 """Hand-written CUDA kernels of the tile blend, their plain PyTorch
 versions, and the autograd Functions that join forward and backward.
 
-Five kernels, each replacing one Pallas TPU kernel of
+Seven kernels, each replacing one Pallas TPU kernel (or one variant) of
 ``lvdgs_tpu/ops/rasterizer_pallas.py``. In ``lvdgs_torch/csrc/blend.cu``:
 
 - ``blend_forward``  <- ``_make_fwd_kernel`` (front-to-back blend),
 - ``blend_backward`` <- ``_make_bwd_kernel`` (its VJP),
 - ``median_depth``   <- ``_make_median_kernel`` (transmittance-median depth);
 
-in ``lvdgs_torch/csrc/blend_packed.cu`` (float32 variants):
+in ``lvdgs_torch/csrc/blend_packed.cu``:
 
 - ``packed_blend_forward``  <- ``_make_packed_fwd_kernel`` (the blend over
   group-CSR chunk lists; with ``probe_wmax`` the saturation-feedback probe),
-- ``packed_blend_backward`` <- ``_make_packed_bwd_kernel`` (its VJP).
+- ``packed_blend_backward`` <- ``_make_packed_bwd_kernel`` (its VJP),
+- ``packed_blend_forward_bf16``, ``packed_blend_backward_bf16`` <- the same
+  two with ``bf16=True``: each slot's weight math in bfloat16, rounded at
+  the points of the Pallas expression (``_alpha_at_bf16``), the rest in
+  float32.
+
+The resident-table probe's two kernels (``lvdgs_torch/csrc/resident.cu``)
+are built here with the others; their wrappers are in ``resident_cuda``.
 
 Layouts are those of the Pallas kernels: dense tile params ``tp`` are
 (K, T, 10) float32 with fields [mean_x, mean_y, conic_a, conic_b, conic_c,
@@ -64,7 +71,7 @@ KC = 32  # slots per chunk of the packed layout
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # one shared library per source, built by one nvcc each, all at once
-_SOURCES = ("blend", "blend_packed")
+_SOURCES = ("blend", "blend_packed", "resident")
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -163,6 +170,10 @@ def _load(fmad: bool) -> types.SimpleNamespace:
         ("blend", "lvdgs_median_depth"): [p, p, p, p, i, i, i, p],
         ("blend_packed", "lvdgs_packed_fwd"): [p, p, p, p, p, p, p, i, i, i, i, i, p],
         ("blend_packed", "lvdgs_packed_bwd"): [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_fwd_bf16"): [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_bwd_bf16"): [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+        ("resident", "lvdgs_resident_gather"): [p, p, p, i, i, i, i, p],
+        ("resident", "lvdgs_resident_scatter"): [p, p, p, i, i, i, i, p],
     }
     fns = {}
     for (lib, name), types_ in argtypes.items():
@@ -258,22 +269,44 @@ def _alpha_at(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return alpha, G, dx, dy, raw
 
 
-def _slot_forward(p, px, py, alive, trans, acc):
+def _alpha_at_bf16(p: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """_alpha_at with the weight math in bfloat16, as the Pallas packed
+    kernels' bf16 variant: coordinates relative to each tile's origin
+    (px[:, :1], py[:, :1], the tile's first pixel), every operation a
+    bfloat16 one, exp on the rounded power; raw is widened to float32 and
+    the ok test compares the widened power. Returns float32 (alpha, G, dx,
+    dy, raw), G, dx and dy the widened bf16 values the backward uses."""
+    bt = torch.bfloat16
+    ox, oy = px[:, :1], py[:, :1]
+    dx = (px - ox).to(bt) - (p[:, 0:1] - ox).to(bt)  # local coordinates < 16: bf16-exact
+    dy = (py - oy).to(bt) - (p[:, 1:2] - oy).to(bt)
+    ca, cb, cc = p[:, 2:3].to(bt), p[:, 3:4].to(bt), p[:, 4:5].to(bt)
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    G = torch.exp(power)
+    raw = (p[:, 9:10].to(bt) * G).float()
+    ok = (power.float() <= 0.0) & (raw >= ALPHA_MIN)
+    alpha = torch.where(ok, torch.clamp(raw, max=ALPHA_MAX), torch.zeros_like(raw))
+    return alpha, G.float(), dx.float(), dy.float(), raw
+
+
+def _slot_forward(p, px, py, alive, trans, acc, bf16: bool = False):
     """One marched slot of the forward, for the tiles of the rows of p
     (those not `alive` take alpha 0). Returns (blend weights (T, P),
     trans', acc')."""
-    alpha = _alpha_at(p, px, py)[0]
+    alpha = (_alpha_at_bf16 if bf16 else _alpha_at)(p, px, py)[0]
     alpha = torch.where(alive[:, None], alpha, torch.zeros_like(alpha))
     w = torch.where(trans > T_EPS, alpha * trans, torch.zeros_like(alpha))
     acc = acc + w[:, None, :] * p[:, 5:9, None]
     return w, trans * (1.0 - alpha), acc
 
 
-def _slot_backward(p, px, py, alive, trans, prefix, acc, trans_final, dacc, dtrans):
-    """One marched slot of the backward. Returns (d params (T, NF), trans',
-    prefix')."""
+def _slot_backward(p, px, py, alive, trans, prefix, acc, trans_final, dacc, dtrans,
+                   bf16: bool = False):
+    """One marched slot of the backward (with `bf16`, the bf16 weights
+    replayed and everything after them in float32, with the float32 conic).
+    Returns (d params (T, NF), trans', prefix')."""
     zero = torch.zeros((), dtype=torch.float32, device=p.device)
-    alpha, G, dx, dy, raw = _alpha_at(p, px, py)
+    alpha, G, dx, dy, raw = (_alpha_at_bf16 if bf16 else _alpha_at)(p, px, py)
     alpha = torch.where(alive[:, None], alpha, zero)
     contributes = trans > T_EPS
     w = torch.where(contributes, alpha * trans, zero)
@@ -412,7 +445,9 @@ def _from_group_major(x: torch.Tensor, G: int) -> torch.Tensor:
 
 
 def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
-                               with_nt: bool = True, probe_wmax: bool = False):
+                               with_nt: bool = True, probe_wmax: bool = False, bf16: bool = False):
+    if bf16 and probe_wmax:
+        raise ValueError("the saturation probe has no bf16 form")
     NB, _, TG, _ = tp.shape
     G = n_groups
     dev = tp.device
@@ -422,7 +457,7 @@ def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
     nt = torch.zeros((NB, KC, TG), dtype=torch.int32, device=dev)
     for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
         p = tp[b, kc].reshape(G * TG, NF)
-        w, state["trans"], acc = _slot_forward(p, px, py, alive, state["trans"], acc)
+        w, state["trans"], acc = _slot_forward(p, px, py, alive, state["trans"], acc, bf16)
         if probe_wmax:
             val = torch.ceil(w.max(dim=1).values * 65536.0).to(torch.int32)
         elif with_nt:
@@ -434,7 +469,7 @@ def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
 
 
 def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, dtrans,
-                                n_groups: int, ntx: int):
+                                n_groups: int, ntx: int, bf16: bool = False):
     NB, _, TG, _ = tp.shape
     G = n_groups
     dev = tp.device
@@ -446,7 +481,7 @@ def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, 
     for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
         p = tp[b, kc].reshape(G * TG, NF)
         d, state["trans"], prefix = _slot_backward(p, px, py, alive, state["trans"], prefix, acc,
-                                                   trans_final, dacc, dtrans)
+                                                   trans_final, dacc, dtrans, bf16)
         dtp[b[has], kc] = d.reshape(G, TG, NF)[has]
     return dtp
 
@@ -514,6 +549,28 @@ def median_depth(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     return dmed, opac
 
 
+def _packed_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bool,
+                    probe_wmax: bool, bf16: bool):
+    """B4 (`bf16`: B4-bf16) for CUDA tensors, its plain version for CPU ones."""
+    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups)
+    if tp.device.type == "cpu":
+        return packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups, ntx, with_nt,
+                                          probe_wmax=probe_wmax, bf16=bf16)
+    NB, _, TG, _ = tp.shape
+    acc = torch.empty((n_groups + 1, 4, TG, P), dtype=torch.float32, device=tp.device)
+    trans = torch.empty((n_groups + 1, TG, P), dtype=torch.float32, device=tp.device)
+    nt = torch.empty((NB, KC, TG), dtype=torch.int32, device=tp.device)
+    mode = 2 if probe_wmax else (1 if with_nt else 0)
+    lib = _library()
+    fn, wrapper = ((lib.lvdgs_packed_fwd_bf16, packed_blend_forward_bf16) if bf16
+                   else (lib.lvdgs_packed_fwd, packed_blend_forward))
+    err = fn(tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
+             trans.data_ptr(), nt.data_ptr(), NB, n_groups, TG, ntx, mode, _stream())
+    _check_launch(err, wrapper.__name__)
+    wrapper.launches.add()
+    return acc, trans, nt
+
+
 def packed_blend_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
                          with_nt: bool = True, probe_wmax: bool = False):
     """Front-to-back blend over packed (group-CSR) chunk lists.
@@ -530,27 +587,19 @@ def packed_blend_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
     in group order, row G a filler (zeros, ones). nt holds per-slot touched
     pixel counts (`with_nt`), or with `probe_wmax` each slot's largest blend
     weight as ceil(w * 65536), or zeros."""
-    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups)
-    if tp.device.type == "cpu":
-        return packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, probe_wmax)
-    NB, _, TG, _ = tp.shape
-    acc = torch.empty((n_groups + 1, 4, TG, P), dtype=torch.float32, device=tp.device)
-    trans = torch.empty((n_groups + 1, TG, P), dtype=torch.float32, device=tp.device)
-    nt = torch.empty((NB, KC, TG), dtype=torch.int32, device=tp.device)
-    mode = 2 if probe_wmax else (1 if with_nt else 0)
-    err = _library().lvdgs_packed_fwd(
-        tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
-        trans.data_ptr(), nt.data_ptr(), NB, n_groups, TG, ntx, mode, _stream(),
-    )
-    _check_launch(err, "packed_blend_forward")
-    packed_blend_forward.launches.add()
-    return acc, trans, nt
+    return _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, probe_wmax, False)
 
 
-def packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
-                          ntx: int):
-    """VJP of packed_blend_forward w.r.t. tp -> dtp (NB, KC, TG, NF); slots
-    the march never reaches (and padding chunks) get zeros."""
+def packed_blend_forward_bf16(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
+                              with_nt: bool = True):
+    """packed_blend_forward with each slot's weight math in bfloat16 (the
+    reference's ``bf16=True``); no probe form."""
+    return _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, False, True)
+
+
+def _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int, ntx: int,
+                     bf16: bool):
+    """B5 (`bf16`: B5-bf16) for CUDA tensors, its plain version for CPU ones."""
     _check_packed_inputs(tp, cg, k0, goff, tids, n_groups, acc, trans, dacc, dtrans)
     NB, _, TG, _ = tp.shape
     for name, x, shape in (("acc", acc, (n_groups + 1, 4, TG, P)), ("dacc", dacc, (n_groups + 1, 4, TG, P)),
@@ -560,16 +609,31 @@ def packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_gr
             raise ValueError(f"{name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
     if tp.device.type == "cpu":
         return packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans,
-                                           n_groups, ntx)
+                                           n_groups, ntx, bf16=bf16)
     dtp = torch.empty((NB, KC, TG, NF), dtype=torch.float32, device=tp.device)
-    err = _library().lvdgs_packed_bwd(
-        tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
-        trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(), NB, n_groups, TG,
-        ntx, _stream(),
-    )
-    _check_launch(err, "packed_blend_backward")
-    packed_blend_backward.launches.add()
+    lib = _library()
+    fn, wrapper = ((lib.lvdgs_packed_bwd_bf16, packed_blend_backward_bf16) if bf16
+                   else (lib.lvdgs_packed_bwd, packed_blend_backward))
+    err = fn(tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
+             trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(), NB, n_groups, TG,
+             ntx, _stream())
+    _check_launch(err, wrapper.__name__)
+    wrapper.launches.add()
     return dtp
+
+
+def packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
+                          ntx: int):
+    """VJP of packed_blend_forward w.r.t. tp -> dtp (NB, KC, TG, NF); slots
+    the march never reaches (and padding chunks) get zeros."""
+    return _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups, ntx, False)
+
+
+def packed_blend_backward_bf16(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
+                               ntx: int):
+    """VJP of packed_blend_forward_bf16: the bf16 weights replayed, the rest
+    in float32."""
+    return _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups, ntx, True)
 
 
 blend_forward.launches = LaunchCounter()
@@ -577,9 +641,11 @@ blend_backward.launches = LaunchCounter()
 median_depth.launches = LaunchCounter()
 packed_blend_forward.launches = LaunchCounter()
 packed_blend_backward.launches = LaunchCounter()
+packed_blend_forward_bf16.launches = LaunchCounter()
+packed_blend_backward_bf16.launches = LaunchCounter()
 
 KERNEL_WRAPPERS = (blend_forward, blend_backward, median_depth, packed_blend_forward,
-                   packed_blend_backward)
+                   packed_blend_backward, packed_blend_forward_bf16, packed_blend_backward_bf16)
 
 
 class BlendFunction(torch.autograd.Function):
@@ -609,14 +675,15 @@ def blend(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
 
 
 class PackedBlendFunction(torch.autograd.Function):
-    """packed_blend_forward with packed_blend_backward as its VJP (no
-    gradient to the chunk maps or to the per-slot counts)."""
+    """packed_blend_forward with packed_blend_backward as its VJP (with
+    `bf16` their bf16 variants; no gradient to the chunk maps or to the
+    per-slot counts)."""
 
     @staticmethod
-    def forward(ctx, tp, cg, k0, goff, tids, n_groups, ntx, with_nt):
-        acc, trans, nt = packed_blend_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt=with_nt)
+    def forward(ctx, tp, cg, k0, goff, tids, n_groups, ntx, with_nt, bf16):
+        acc, trans, nt = _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, False, bf16)
         ctx.save_for_backward(tp, cg, k0, goff, tids, acc, trans)
-        ctx.n_groups, ctx.ntx = n_groups, ntx
+        ctx.n_groups, ctx.ntx, ctx.bf16 = n_groups, ntx, bf16
         ctx.mark_non_differentiable(nt)
         return acc, trans, nt
 
@@ -625,11 +692,13 @@ class PackedBlendFunction(torch.autograd.Function):
         tp, cg, k0, goff, tids, acc, trans = ctx.saved_tensors
         dacc = torch.zeros_like(acc) if dacc is None else dacc.contiguous()
         dtrans = torch.zeros_like(trans) if dtrans is None else dtrans.contiguous()
-        dtp = packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans,
-                                    ctx.n_groups, ctx.ntx)
-        return dtp, None, None, None, None, None, None, None
+        dtp = _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, ctx.n_groups,
+                               ctx.ntx, ctx.bf16)
+        return dtp, None, None, None, None, None, None, None, None
 
 
-def blend_packed(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bool = True):
-    """Differentiable (w.r.t. tp) blend over packed chunk lists."""
-    return PackedBlendFunction.apply(tp, cg, k0, goff, tids, n_groups, ntx, with_nt)
+def blend_packed(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bool = True,
+                 bf16: bool = False):
+    """Differentiable (w.r.t. tp) blend over packed chunk lists; `bf16`
+    runs each slot's weight math in bfloat16 (RenderConfig.blend_bf16)."""
+    return PackedBlendFunction.apply(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, bf16)

@@ -13,14 +13,14 @@ mapping (init, windowed, colour refinement) at 128, both with saturation
 feedback, as the reference does off the CPU; on the CPU both render dense.
 The exact renders (eval, covisibility prune, tracking's final bookkeeping
 render, median-depth fusion) stay dense. Performance.packed_*_budget and
-saturation_feedback[_mapping] override the defaults.
+saturation_feedback[_mapping] override the defaults; Performance.blend_bf16
+runs the packed tracking and mapping renders' weight math in bfloat16.
 
 Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: the bf16 packed blend (B4-bf16, B5-bf16), the active-prefix
-binning bucket (C4), pyramid tracking (A6), global BA and checkpoints
-(A7/A8), dynamic filtering (A11), MASt3R priors (A12), the GUI (A14) and
-data-parallel mapping (A15).
+ROADMAP item: the active-prefix binning bucket (C4), pyramid tracking (A6),
+global BA and checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors
+(A12), the GUI (A14) and data-parallel mapping (A15).
 """
 from __future__ import annotations
 
@@ -68,7 +68,6 @@ def _refuse_unported(config: dict) -> None:
     res = config.get("Results", {}) or {}
     checks = [
         (perf.get("bin_active_bucket", False), "the active-prefix binning bucket (ROADMAP C4)"),
-        (perf.get("blend_bf16", False), "the bf16 packed blend (ROADMAP B4-bf16, B5-bf16)"),
         (perf.get("data_parallel", False), "data-parallel mapping (ROADMAP A15)"),
         (tr.get("track_pyramid", False), "pyramid tracking (ROADMAP A6)"),
         (res.get("global_BA", False), "global bundle adjustment (ROADMAP A7)"),
@@ -112,16 +111,20 @@ class SLAM:
         # packed (group-CSR) render budgets per path, 0 = dense: on CUDA
         # tracking at 96 and mapping at 128 slots per tile with saturation
         # feedback (192 without), on the CPU dense, as the reference sets
-        # them off and on its CPU. Exact renders keep self.rcfg.
+        # them off and on its CPU. Exact renders keep self.rcfg. blend_bf16
+        # (bf16 weight math) reaches only these two optimiser-facing configs.
         on_cpu = self.device.type == "cpu"
         tb = perf.get("packed_tracking_budget", 0 if on_cpu else 96)
         sat_t = perf.get("saturation_feedback", True)
         sat_m = perf.get("saturation_feedback_mapping", True)
         mb = perf.get("packed_mapping_budget", 0 if on_cpu else (128 if sat_m else 192))
+        bfb = perf.get("blend_bf16", False)
         self.rcfg_track = (dataclasses.replace(self.rcfg, use_packed=True, slot_budget_per_tile=tb,
-                                               saturation_feedback=sat_t) if tb else self.rcfg)
+                                               saturation_feedback=sat_t, blend_bf16=bfb)
+                           if tb else self.rcfg)
         self.rcfg_map = (dataclasses.replace(self.rcfg, use_packed=True, slot_budget_per_tile=mb,
-                                             saturation_feedback=sat_m) if mb else self.rcfg)
+                                             saturation_feedback=sat_m, blend_bf16=bfb)
+                         if mb else self.rcfg)
         # synced_timers: end each timed phase with a device synchronise so
         # the phase timers read device time (costs one sync per phase)
         self.synced_timers = bool(int(os.environ.get("LVDGS_SYNCED_TIMERS", "0"))) or perf.get(

@@ -54,16 +54,30 @@ def test_every_module_imports_without_gpu_or_nvcc():
 
 
 def test_kernel_sources_are_in_the_package():
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+
+    blend = "__global__ void __launch_bounds__(NPIX)\n"
     kernels = {
-        "blend.cu": (("blend_fwd_kernel", "blend_bwd_kernel", "median_depth_kernel"),
+        "blend.cu": ((blend + "blend_fwd_kernel", blend + "blend_bwd_kernel",
+                      blend + "median_depth_kernel"),
                      ("lvdgs_blend_fwd", "lvdgs_blend_bwd", "lvdgs_median_depth")),
-        "blend_packed.cu": (("packed_fwd_kernel", "packed_bwd_kernel"),
-                            ("lvdgs_packed_fwd", "lvdgs_packed_bwd")),
+        "blend_packed.cu": (("template <bool BF16>\n" + blend + "packed_fwd_kernel",
+                             "template <bool BF16>\n" + blend + "packed_bwd_kernel"),
+                            ("lvdgs_packed_fwd", "lvdgs_packed_bwd", "lvdgs_packed_fwd_bf16",
+                             "lvdgs_packed_bwd_bf16")),
+        "resident.cu": (("__global__ void resident_gather_kernel", "__global__ void zero_kernel",
+                         "__global__ void resident_scatter_kernel"),
+                        ("lvdgs_resident_gather", "lvdgs_resident_scatter")),
     }
+    assert set(rc._SOURCES) == {name[:-3] for name in kernels}
     for name, (globals_, entry_points) in kernels.items():
         src = (ROOT / "lvdgs_torch" / "csrc" / name).read_text()
-        assert '#include "blend_common.cuh"' in src
+        if name != "resident.cu":
+            assert '#include "blend_common.cuh"' in src
         for kernel in globals_:
-            assert f"__global__ void __launch_bounds__(NPIX)\n{kernel}(" in src
+            assert f"{kernel}(" in src
         for fn in entry_points:
             assert f"int {fn}(" in src
+    # the measurement entry point is a module of the package
+    assert (ROOT / "lvdgs_torch" / "tools" / "perf_resident.py").is_file()
+    assert (ROOT / "lvdgs_torch" / "tools" / "__init__.py").is_file()

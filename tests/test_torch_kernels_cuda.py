@@ -1,5 +1,6 @@
-"""The CUDA blend kernels (dense and packed) against their plain PyTorch
-versions.
+"""The CUDA kernels (the dense and packed blend, the packed blend's bf16
+variants, the resident-table gather and scatter) against their plain
+PyTorch versions.
 
 The tests marked `cuda` need the card and skip without one. This file
 imports neither JAX nor the reference package, so it also runs where only
@@ -11,10 +12,14 @@ Tolerances: the forward and median kernels round every operation as the
 plain versions do (nvcc -fmad=false) and agree to 1e-5; the backward sums
 each slot's 256 pixel terms in another order and agrees to 1e-5 of each
 field's largest gradient. The packed kernels are held to the same
-tolerances, with their per-slot counts and probe weights equal. The
-rasterizer's gradients also pass through the scatter-add of the slot
-gather, whose atomic adds run in any order, and are held to 1e-3 of each
-field's largest gradient.
+tolerances, with their per-slot counts and probe weights equal; the bf16
+forward rounds at the same points as its plain version (one rounding per
+bf16 operation) and is held bit for bit. The rasterizer's gradients also
+pass through the scatter-add of the slot gather, whose atomic adds run in
+any order, and are held to 1e-3 of each field's largest gradient. The
+resident gather adds in its plain version's order and is held bit for bit;
+the resident scatter adds with atomics, in any order, and is held to 1e-5
+of the table's largest magnitude.
 """
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ import torch
 from lvdgs_torch.core.camera import Intrinsics
 from lvdgs_torch.ops import rasterizer as tr
 from lvdgs_torch.ops import rasterizer_cuda as rc
+from lvdgs_torch.ops import resident_cuda as rs
 from torch_parity import cuda_device, make_scene_np  # noqa: F401
 
 
@@ -116,6 +122,38 @@ def test_packed_kernels_match_plain(cuda_device, flags, T, ntx, budget, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_nt", [True, False], ids=["with_nt", "no_nt"])
+@pytest.mark.parametrize("T,ntx,budget,K", [(40, 8, 96, 128), (160, 16, 128, 256)])
+def test_packed_bf16_kernels_match_plain(cuda_device, with_nt, T, ntx, budget, K):
+    args, G = _packed_block(T, ntx, budget, K, T + K, cuda_device)
+    acc, trans, nt = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=with_nt)
+    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, ntx, with_nt=with_nt, bf16=True)
+    assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
+    assert bool(nt.any()) == with_nt
+    acc32 = rc.packed_blend_forward(*args, G, ntx, with_nt=with_nt)[0]
+    assert not torch.equal(acc, acc32)  # the bf16 weights ran
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
+    dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
+    dtp = rc.packed_blend_backward_bf16(*args, acc, trans, dacc, dtrans, G, ntx)
+    dtp_p = rc.packed_blend_backward_plain(*args, acc, trans, dacc, dtrans, G, ntx, bf16=True)
+    _rel_close(dtp, dtp_p, 1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T,K,TG", [(4096, 64, 32, 8), (2**17, 1848, 256, 8)])
+def test_resident_kernels_match_plain(cuda_device, C, T, K, TG):
+    from lvdgs_torch.tools.perf_resident import make_inputs
+
+    idx, fields, upd = make_inputs(C, T, K, TG, cuda_device)
+    assert torch.equal(rs.resident_gather(idx, fields), rs.resident_gather_plain(idx, fields))
+    out, ref = rs.resident_scatter(idx, upd, C + 1), rs.resident_scatter_plain(idx, upd, C + 1)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_packed_forward_equals_dense_on_card(cuda_device):
     """Plain grouping and a budget that does not bind: the packed kernel's
     acc and trans equal the dense kernel's bit for bit on the same slots."""
@@ -174,7 +212,21 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
     args, G = _packed_block(24, 8, 64, 64, 3, cuda_device)
     acc, trans, _ = rc.packed_blend_forward(*args, G, 8)
     rc.packed_blend_backward(*args, acc, trans, torch.ones_like(acc), torch.ones_like(trans), G, 8)
-    assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1, 1, 1, 1, 1]
+    acc, trans, _ = rc.packed_blend_forward_bf16(*args, G, 8)
+    rc.packed_blend_backward_bf16(*args, acc, trans, torch.ones_like(acc), torch.ones_like(trans), G, 8)
+    assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1] * 7
+    before = [w.launches.count for w in rs.KERNEL_WRAPPERS]
+    idx = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda_device)
+    rs.resident_gather(idx, torch.ones((3, rs.NF), device=cuda_device))
+    rs.resident_scatter(idx, torch.ones((2, 4, 8, rs.NF), device=cuda_device), 3)
+    assert [w.launches.count - b for w, b in zip(rs.KERNEL_WRAPPERS, before)] == [1, 1]
+    with pytest.raises(ValueError):
+        rs.resident_gather(idx, torch.ones((3, rs.NF)))
+    with pytest.raises(ValueError, match="indices must lie in"):
+        rs.resident_gather(idx + 3, torch.ones((3, rs.NF), device=cuda_device))
+    with pytest.raises(ValueError, match="indices must lie in"):
+        rs.resident_scatter(idx - 1, torch.ones((2, 4, 8, rs.NF), device=cuda_device), 3)
+    assert [w.launches.count - b for w, b in zip(rs.KERNEL_WRAPPERS, before)] == [1, 1]
     with pytest.raises(ValueError):
         rc.packed_blend_forward(args[0], args[1].long(), *args[2:], G, 8)
     with pytest.raises(ValueError):

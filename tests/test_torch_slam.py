@@ -460,8 +460,7 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
-    asks = [("Performance", "blend_bf16", True, "B4-bf16"),
-            ("Performance", "bin_active_bucket", True, "C4"),
+    asks = [("Performance", "bin_active_bucket", True, "C4"),
             ("Training", "track_pyramid", True, "A6"),
             ("Results", "global_BA", True, "A7"),
             ("dynamic_filtering", "enabled", True, "A11"),
@@ -471,3 +470,12 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
         c.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match=item):
             SLAM(c, device="cpu")
+    # the bf16 packed blend is carried: it reaches the two optimiser-facing
+    # render configs (packed here), not the exact renders' config
+    c = copy.deepcopy(cfg)
+    c["Performance"].update({"blend_bf16": True, "packed_tracking_budget": 48,
+                             "packed_mapping_budget": 64})
+    slam = SLAM(c, device="cpu")
+    assert slam.rcfg_track.blend_bf16 and slam.rcfg_map.blend_bf16
+    assert slam.rcfg_track.use_packed and slam.rcfg_map.use_packed
+    assert not slam.rcfg.blend_bf16 and not slam.rcfg.use_packed
