@@ -5,7 +5,10 @@
 
 Phases, each of which must pass:
 1. build the CUDA kernels from lvdgs_torch/csrc with nvcc (one nvcc per
-   source and build, all at once: blend.cu, blend_packed.cu, resident.cu);
+   source and build, all at once: blend.cu, blend_packed.cu, resident.cu),
+   and print each kernel's registers, local (spill) bytes, static shared
+   memory and blocks per SM, and nvcc's -Xptxas -v report of
+   blend_packed.cu;
 2. hold each kernel against its plain PyTorch version on the card at the
    street-scene shapes (1226x370 -> 77x24 = 1848 tiles, 256 slots per
    tile; packed: 116 groups of 16 tiles, NB = 348, 464 and 928 chunks for
@@ -14,9 +17,14 @@ Phases, each of which must pass:
    the resident-table kernels at the probe tool's shapes (2^17 rows, 1848
    tiles in groups of 8, 256 slots), and time each with CUDA events beside
    its plain version (and, for the resident kernels, the library call that
-   computes the same function); show that the packed blend equals the dense
-   one bit for bit where its budget does not bind; and check the card's
-   render of a small scene against the CPU render and the NumPy oracle;
+   computes the same function): the blend kernels through their wrappers
+   (ms, as a caller launches them) and straight from their libraries on
+   preallocated outputs (kernel_ms, without the wrappers' host time); the
+   packed forward's march lengths must equal its plain version's, and the
+   packed backward launched twice on the same inputs must give the same
+   bits; show that the packed blend equals the dense one bit for bit where
+   its budget does not bind; and check the card's render of a small scene
+   against the CPU render and the NumPy oracle;
 3. drive the SLAM loop (SLAM.run) on configs/mono/synthetic/street.yaml at
    full width three times: as configured (packed tracking at 96 and mapping
    at 128 slots per tile, with saturation feedback), which must launch B1,
@@ -27,12 +35,22 @@ Phases, each of which must pass:
    against their plain versions again on the slots the packed run's final
    map gives from its newest keyframe, and its bf16 renders against the
    float32 ones from every keyframe by the reference's own measure (image
-   and parameter gradients); then drive the resident-table probe
+   and parameter gradients), and the gather's transpose on them against
+   index_select's (its own sum must repeat bit for bit); then drive the
+   float32 street run once more, which must end with the first run's map
+   and poses bit for bit; then drive the resident-table probe
    (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
 4. print the per-kernel JSON line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 outside a checkout, or when any phase fails.
+
+    python3 chip_smoke.py --deterministic-street FILE [--against OTHER]
+
+runs only the float32 packed street run, under deterministic algorithms,
+writes its final map and poses to FILE and compares them bit for bit with
+OTHER, written the same way by another checkout: the test that a kernel
+change computes what its parent computed.
 """
 from __future__ import annotations
 
@@ -91,38 +109,23 @@ SOURCES = {"blend_forward": f"{_CSRC}/blend.cu", "blend_backward": f"{_CSRC}/ble
 BF16_PIXEL_ERR, BF16_PSNR, BF16_GRAD_COS = 0.02, 45.0, 0.999
 # limits of the SLAM runs (tests/test_e2e_synthetic.py)
 ATE_LIMIT, PSNR_LIMIT = 0.08, 17.0
-TG = 16  # tiles per group of the packed layout
+# the gather transpose against index_add_: both sum each Gaussian's slot
+# gradients in float32, in other orders
+GATHER_TOL = 1e-5
+# each kernel's function in the libraries (rasterizer_cuda.kernel_attrs)
+ATTRS = {"blend_forward": "blend_fwd_kernel", "blend_backward": "blend_bwd_kernel",
+         "median_depth": "median_depth_kernel",
+         # B4 and B4-bf16 as the main path launches them: without touch counts
+         "packed_blend_forward": "packed_fwd_kernel<false, NT_NONE>",
+         "packed_blend_backward": "packed_bwd_kernel<false>",
+         "packed_blend_forward_bf16": "packed_fwd_kernel<true, NT_NONE>",
+         "packed_blend_backward_bf16": "packed_bwd_kernel<true>",
+         "resident_gather": "resident_gather_kernel", "resident_scatter": "resident_scatter_kernel"}
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def street_block(K: int, T: int, ntx: int, seed: int, device):
-    """Random depth-sorted slot lists with ragged counts, shaped like the
-    street scene's: Gaussians scattered around each tile, 1-60 px wide."""
-    import torch
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    tid = torch.arange(T, device=device)
-    cx = ((tid % ntx) * 16 + 8).to(torch.float32)
-    cy = ((tid // ntx) * 16 + 8).to(torch.float32)
-    u = lambda *shape: torch.rand(*shape, generator=g, device=device)  # noqa: E731
-    tp = torch.empty((K, T, 10), device=device)
-    tp[..., 0] = cx[None] + (u(K, T) - 0.5) * 40.0
-    tp[..., 1] = cy[None] + (u(K, T) - 0.5) * 40.0
-    sigma = 1.0 + 20.0 * u(K, T) ** 2  # pixels
-    a = 1.0 / sigma**2
-    tp[..., 2] = a
-    tp[..., 3] = (u(K, T) - 0.5) * 0.5 * a
-    tp[..., 4] = a * (0.5 + u(K, T))
-    tp[..., 5:8] = u(K, T, 3)
-    tp[..., 8] = torch.sort(1.0 + 60.0 * u(K, T), dim=0).values
-    # some opacities reach the 0.99 clamp, whose gate the backward must keep
-    tp[..., 9] = 0.05 + 0.95 * u(K, T)
-    counts = (u(T) * (K + 1)).floor().clamp(max=K).to(torch.int32)
-    return tp.contiguous(), counts
 
 
 def marched_slots(tp, counts, ntx: int, threshold: float) -> int:
@@ -186,9 +189,8 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
                              wrapper=rc.median_depth, threshold=0.5, ops=OPS_MED, tol=1e-5,
                              io_bytes=2 * T * rc.P * 4),
     }
-    fmad_lib = rc._library(fmad=True)
-    fmad_fn = {"blend_forward": fmad_lib.lvdgs_blend_fwd, "blend_backward": fmad_lib.lvdgs_blend_bwd,
-               "median_depth": fmad_lib.lvdgs_median_depth}
+    entry = {"blend_forward": "lvdgs_blend_fwd", "blend_backward": "lvdgs_blend_bwd",
+             "median_depth": "lvdgs_median_depth"}
     for name, r in report.items():
         args = r["args"]
         out = r["wrapper"](*args)
@@ -201,56 +203,36 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
               f"tolerance of {r['tol']:.0e} ({what}) {'ok' if ok else 'DISAGREES'}", flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version")
-        r["ms"] = time_ms(lambda: r["wrapper"](*args), reps=10, inner=20)
-        r["plain_ms"] = time_ms(lambda: r["plain"](*args), reps=10, warmup=1)
-        m = marched[r["threshold"]]
-        r["bound_ms"], r["bound_by"] = bound_ms(m * rc.NF * 4 + T * 4 + r["io_bytes"], m * rc.P * r["ops"])
-        print(f"kernel {name} [{label}]: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {m} tile-slots marched)", flush=True)
-
-        # the same kernel built with contraction, on the same inputs and
-        # outputs of the same shapes, timed in turns with the shipped build
+        # the shipped build and the one built with contraction, launched
+        # straight from their libraries on the same inputs and on outputs of
+        # the same shapes (no wrapper on the host between launches), in turns
         outs = [torch.empty_like(o) for o in (out if isinstance(out, tuple) else (out,))]
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         ptrs = [x.data_ptr() for x in (*ins, *outs)]
+        shipped, fmad = (getattr(rc._library(fmad=f), entry[name]) for f in (False, True))
 
-        def call(fn=fmad_fn[name], ptrs=ptrs, name=name):
+        def call(fn, ptrs=ptrs, name=name):
             rc._check_launch(fn(*ptrs, K, T, ntx, rc._stream()), name)
 
-        call()
+        call(fmad)
         torch.cuda.synchronize()
         fmad_err = errors(name, outs if len(outs) > 1 else outs[0], ref)[1]
-        fmad_ms = time_ms(call, reps=10, inner=20)
-        again_ms = time_ms(lambda: r["wrapper"](*args), reps=10, inner=20)
+        # ms through the wrapper, as a caller launches the kernel; kernel_ms
+        # straight from the library, without the wrapper's host time
+        r["ms"] = time_ms(lambda: r["wrapper"](*args), reps=10, inner=20)
+        r["kernel_ms"] = time_ms(lambda: call(shipped), reps=10, inner=20)
+        fmad_ms = time_ms(lambda: call(fmad), reps=10, inner=20)
+        again_ms = time_ms(lambda: call(shipped), reps=10, inner=20)
+        r["plain_ms"] = time_ms(lambda: r["plain"](*args), reps=10, warmup=1)
+        m = marched[r["threshold"]]
+        r["bound_ms"], r["bound_by"] = bound_ms(m * rc.NF * 4 + T * 4 + r["io_bytes"], m * rc.P * r["ops"])
+        print(f"kernel {name} [{label}]: {r['ms']:.4f} ms through the wrapper ({r['kernel_ms']:.4f} "
+              f"straight from the library), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {m} tile-slots marched)", flush=True)
         print(f"kernel {name} [{label}]: with multiply-add contraction {fmad_ms:.4f} ms against "
-              f"{r['ms']:.4f} / {again_ms:.4f} ms as shipped (-fmad=false), error {fmad_err:.3e} "
-              f"({what})", flush=True)
+              f"{r['kernel_ms']:.4f} / {again_ms:.4f} ms as shipped (-fmad=false), straight from the "
+              f"libraries, error {fmad_err:.3e} ({what})", flush=True)
     return report
-
-
-def packed_from_dense(tp, counts, budget: int, sort_by_depth: bool, seed: int):
-    """A packed block made by pack_bins from a dense (K, T, 10) block: the
-    kernels' inputs [tp, cg, k0, goff, tids] and the number of groups. With
-    `sort_by_depth` the tiles get random caps and depth-sorted grouping, as
-    under saturation feedback; without, plain grouping, as the probe packs."""
-    import torch
-    from lvdgs_torch.ops import rasterizer as tr
-
-    K, T, NF = tp.shape
-    dev = tp.device
-    C = K * T
-    # fields row t * K + k is slot k of tile t
-    fields = torch.cat([tp.permute(1, 0, 2).reshape(C, NF), tp.new_zeros(1, NF)])
-    slot_valid = torch.arange(K, device=dev)[None] < counts[:, None].long()
-    tile_idx = torch.where(slot_valid, torch.arange(C, device=dev).reshape(T, K), C)
-    cap = None
-    if sort_by_depth:
-        g = torch.Generator(device=dev).manual_seed(seed)
-        cap = torch.randint(0, K + 1, (T,), generator=g, device=dev, dtype=torch.int32)
-    pb = tr.pack_bins(tile_idx, slot_valid, C, tile_group=TG, slot_budget_per_tile=budget,
-                      tile_cap=cap, sort_by_depth=sort_by_depth)
-    goff = torch.zeros(1, dtype=torch.int32, device=dev)
-    return [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids], -(-T // TG)
 
 
 def packed_marched_slots(args, G: int, ntx: int) -> int:
@@ -290,10 +272,11 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True, bf16: 
     dev = tp.device
     marched = packed_marched_slots(args, G, ntx)
     g = torch.Generator(device=dev).manual_seed(1)
-    acc, trans, _ = rc.packed_blend_forward(*args, G, ntx, with_nt=False)
+    acc, trans, _, march = rc.packed_blend_forward(*args, G, ntx, with_nt=False)
     dacc = torch.randn(acc.shape, generator=g, device=dev)
     dtrans = torch.randn(trans.shape, generator=g, device=dev)
-    out_bytes = (acc.numel() + trans.numel()) * 4
+    # B4 writes the march lengths, B5 reads them
+    out_bytes = (acc.numel() + trans.numel() + march.numel()) * 4
     idx_bytes = (cg.numel() + tids.numel() + 1) * 4
     nt_bytes = NB * rc.KC * tg * 4
     fwd, fwd_plain = rc.packed_blend_forward, rc.packed_blend_forward_plain
@@ -303,12 +286,12 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True, bf16: 
         "B4 no_nt": (fwd, fwd_plain, dict(with_nt=False), {}, (), (OPS_FWD, 0), out_bytes + nt_bytes),
         "B4 probe_wmax": (fwd, fwd_plain, dict(probe_wmax=True), {}, (), (OPS_FWD, 0),
                           out_bytes + nt_bytes),
-        "B5": (bwd, bwd_plain, {}, {}, (acc, trans, dacc, dtrans), (OPS_BWD, 0),
+        "B5": (bwd, bwd_plain, {}, {}, (march, acc, trans, dacc, dtrans), (OPS_BWD, 0),
                2 * out_bytes + nt_bytes * rc.NF),
     }
     if bf16:
         # B5-bf16 takes B4-bf16's outputs, as the autograd Function gives them
-        acc_b, trans_b, _ = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=False)
+        acc_b, trans_b, _, march_b = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=False)
         bf16_fwd_ops = (OPS_FWD - OPS_ALPHA, OPS_BF16_WEIGHT)
         cases.update({
             "B4-bf16 with_nt": (rc.packed_blend_forward_bf16, fwd_plain, dict(with_nt=True),
@@ -316,26 +299,32 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True, bf16: 
             "B4-bf16 no_nt": (rc.packed_blend_forward_bf16, fwd_plain, dict(with_nt=False),
                               dict(bf16=True), (), bf16_fwd_ops, out_bytes + nt_bytes),
             "B5-bf16": (rc.packed_blend_backward_bf16, bwd_plain, {}, dict(bf16=True),
-                        (acc_b, trans_b, dacc, dtrans), (OPS_BWD - OPS_ALPHA, OPS_BF16_WEIGHT),
+                        (march_b, acc_b, trans_b, dacc, dtrans), (OPS_BWD - OPS_ALPHA, OPS_BF16_WEIGHT),
                         2 * out_bytes + nt_bytes * rc.NF),
         })
     report = {}
     for case, (wrapper, plain, kw, plain_kw, extra, ops, io_bytes) in cases.items():
         call_args = (*args, *extra, G, ntx)
         out = wrapper(*call_args, **kw)
-        ref = plain(*call_args, **kw, **plain_kw)
+        # the plain backward takes no march lengths: it applies the stop rule
+        plain_args = (*args, *extra[1:], G, ntx) if case.startswith("B5") else call_args
+        ref = plain(*plain_args, **kw, **plain_kw)
         torch.cuda.synchronize()
         if case.startswith("B5"):
             err = errors("blend_backward", out, ref)
-            ok = err[1] <= 1e-5
-            what = "of each field's largest gradient"
+            # its per-slot sums run in a fixed order: launched again, the same bits
+            repeats = bool(torch.equal(wrapper(*call_args, **kw), out))
+            ok = err[1] <= 1e-5 and repeats
+            what = f"of each field's largest gradient; launched twice, equal bits: {repeats}"
         else:
             err = errors("blend_forward", out[:2], ref[:2])
             nt_equal = bool(torch.equal(out[2], ref[2]))
+            march_equal = bool(torch.equal(out[3], ref[3]))
             # the bf16 forward rounds where its plain version does: bit for bit
-            ok = (err[1] == 0.0 if "bf16" in case else err[1] <= 1e-5) and nt_equal
+            ok = (err[1] == 0.0 if "bf16" in case else err[1] <= 1e-5) and nt_equal and march_equal
             what = (f"{'bit for bit' if 'bf16' in case else 'absolute'}, per-slot "
-                    f"{'weights' if 'probe' in case else 'counts'} equal: {nt_equal}")
+                    f"{'weights' if 'probe' in case else 'counts'} equal: {nt_equal}, march lengths "
+                    f"equal: {march_equal}")
         tol = "0" if "B4-bf16" in case else "1e-05"
         print(f"kernel {case} [{label}, NB {NB}]: max_abs_err {err[0]:.3e}, error {err[1]:.3e} against a "
               f"tolerance of {tol} ({what}) {'ok' if ok else 'DISAGREES'}", flush=True)
@@ -343,41 +332,45 @@ def check_packed(args, G: int, ntx: int, label: str, timing: bool = True, bf16: 
             fail(f"{case} disagrees with its plain version on {label}")
         r = {"max_abs_err": err[0]}
         if timing:
-            r["ms"] = time_ms(lambda: wrapper(*call_args, **kw), reps=10, inner=20)
-            r["plain_ms"] = time_ms(lambda: plain(*call_args, **kw, **plain_kw), reps=5, warmup=1)
-            r["bound_ms"], r["bound_by"] = bound_ms(marched * rc.NF * 4 + idx_bytes + io_bytes,
-                                                    marched * rc.P * ops[0], marched * rc.P * ops[1])
-            # the contracted build, on the same inputs, in turns with the shipped one
-            fmad = rc._library(fmad=True)
+            # the shipped build and the one built with contraction, launched
+            # straight from their libraries on the same inputs and on outputs
+            # of the same shapes (no wrapper on the host between launches), in
+            # turns
             outs = [torch.empty_like(o) for o in (out if isinstance(out, tuple) else (out,))]
             ptrs = [x.data_ptr() for x in (tp, cg, tids, goff, *extra, *outs)]
-            if case.startswith("B5"):
-                fn = fmad.lvdgs_packed_bwd_bf16 if "bf16" in case else fmad.lvdgs_packed_bwd
+            entry = (f"lvdgs_packed_{'bwd' if case.startswith('B5') else 'fwd'}"
+                     f"{'_bf16' if 'bf16' in case else ''}")
+            shipped, fmad = (getattr(rc._library(fmad=f), entry) for f in (False, True))
+            mode = 2 if "probe" in case else int(bool(kw.get("with_nt")))
+            mode_arg = () if case.startswith("B5") else (mode,)
 
-                def call(fn=fn, ptrs=ptrs, case=case):
-                    rc._check_launch(fn(*ptrs, NB, G, tg, ntx, rc._stream()), case)
-            else:
-                fn = fmad.lvdgs_packed_fwd_bf16 if "bf16" in case else fmad.lvdgs_packed_fwd
-                mode = 2 if "probe" in case else (1 if kw.get("with_nt") else 0)
+            def call(fn, ptrs=ptrs, case=case, mode_arg=mode_arg):
+                rc._check_launch(fn(*ptrs, NB, G, tg, ntx, *mode_arg, rc._stream()), case)
 
-                def call(fn=fn, ptrs=ptrs, case=case, mode=mode):
-                    rc._check_launch(fn(*ptrs, NB, G, tg, ntx, mode, rc._stream()), case)
-            call()
+            call(fmad)
             torch.cuda.synchronize()
             if case.startswith("B5"):
                 fmad_err = errors("blend_backward", outs[0], ref)[1]
             else:
                 fmad_err = errors("blend_forward", outs[:2], ref[:2])[1]
-            fmad_ms = time_ms(call, reps=10, inner=20)
-            again_ms = time_ms(lambda: wrapper(*call_args, **kw), reps=10, inner=20)
-            print(f"kernel {case} [{label}, NB {NB}]: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {marched} tile-slots marched); with "
-                  f"multiply-add contraction {fmad_ms:.4f} ms against {r['ms']:.4f} / {again_ms:.4f} ms "
-                  f"as shipped, error {fmad_err:.3e}", flush=True)
+            # ms through the wrapper, kernel_ms straight from the library
+            r["ms"] = time_ms(lambda: wrapper(*call_args, **kw), reps=10, inner=20)
+            r["kernel_ms"] = time_ms(lambda: call(shipped), reps=10, inner=20)
+            fmad_ms = time_ms(lambda: call(fmad), reps=10, inner=20)
+            again_ms = time_ms(lambda: call(shipped), reps=10, inner=20)
+            r["plain_ms"] = time_ms(lambda: plain(*plain_args, **kw, **plain_kw), reps=5, warmup=1)
+            r["bound_ms"], r["bound_by"] = bound_ms(marched * rc.NF * 4 + idx_bytes + io_bytes,
+                                                    marched * rc.P * ops[0], marched * rc.P * ops[1])
+            print(f"kernel {case} [{label}, NB {NB}]: {r['ms']:.4f} ms through the wrapper "
+                  f"({r['kernel_ms']:.4f} straight from the library), plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {marched} tile-slots marched); with "
+                  f"multiply-add contraction {fmad_ms:.4f} ms against {r['kernel_ms']:.4f} / "
+                  f"{again_ms:.4f} ms as shipped, straight from the libraries, error {fmad_err:.3e}",
+                  flush=True)
         report[case] = r
     if bf16:
-        check_bf16_against_f32(args, G, ntx, (acc, trans), (acc_b, trans_b), dacc, dtrans,
-                               f"{label}, NB {NB}", gate=bf16_gate)
+        check_bf16_against_f32(args, G, ntx, (march, acc, trans), (march_b, acc_b, trans_b), dacc,
+                               dtrans, f"{label}, NB {NB}", gate=bf16_gate)
     return report
 
 
@@ -393,12 +386,12 @@ def check_bf16_against_f32(args, G: int, ntx: int, f32_out, bf16_out, dacc, dtra
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
 
-    (acc, trans), (acc_b, trans_b) = f32_out, bf16_out
+    (march, acc, trans), (march_b, acc_b, trans_b) = f32_out, bf16_out
     diff = acc_b[:G, :3] - acc[:G, :3]
     pixel_err = float(diff.abs().max())
     psnr = 10.0 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
-    d32 = rc.packed_blend_backward(*args, acc, trans, dacc, dtrans, G, ntx)
-    db = rc.packed_blend_backward_bf16(*args, acc_b, trans_b, dacc, dtrans, G, ntx)
+    d32 = rc.packed_blend_backward(*args, march, acc, trans, dacc, dtrans, G, ntx)
+    db = rc.packed_blend_backward_bf16(*args, march_b, acc_b, trans_b, dacc, dtrans, G, ntx)
     cos = [float(torch.nn.functional.cosine_similarity(d32[..., f].reshape(-1), db[..., f].reshape(-1),
                                                        dim=0)) for f in range(rc.NF)]
     near = args[0][..., 9] >= 0.98
@@ -465,10 +458,11 @@ def check_packed_equals_dense(tp, counts, ntx: int) -> None:
     must equal B1's bit for bit."""
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.tools.blocks import packed_from_dense
 
     K = tp.shape[0]
     args, G = packed_from_dense(tp, counts, K, sort_by_depth=False, seed=0)
-    acc_p, trans_p, _ = rc.packed_blend_forward(*args, G, ntx, with_nt=False)
+    acc_p, trans_p, _, _ = rc.packed_blend_forward(*args, G, ntx, with_nt=False)
     acc_d, trans_d, _ = rc.blend_forward(tp, counts, ntx)
     T = tp.shape[1]
     same = (torch.equal(rc._from_group_major(acc_p, G)[:T], acc_d)
@@ -495,6 +489,56 @@ def main_path_block(slam):
     opac = torch.where(active, torch.sigmoid(p["logit_opacities"]), torch.zeros_like(p["logit_opacities"]))
     tp = tr._tile_params(tile_idx, proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
     return tp, slot_valid.sum(dim=1, dtype=torch.int32), ntx
+
+
+def check_gather_transpose(slam) -> None:
+    """The main path's gather transpose (rasterizer._gather_rows' backward,
+    the per-Gaussian sum of each slot's field gradients) on the slots the
+    packed run's final map gives from its newest keyframe, packed as
+    tracking and as mapping and dense: two calls must give the same bits,
+    and it must agree with index_select's own backward (index_add_, whose
+    atomics add in another order each call) within GATHER_TOL of each
+    field's largest gradient. Both are timed, gather and transpose."""
+    import torch
+    from lvdgs_torch.ops import rasterizer as tr
+    from lvdgs_torch.tools.timing import time_ms
+
+    p, active = slam.gmap.params(), slam.gmap.active
+    slot = slam.kf_slots[slam.kf_indices[-1]]
+    R, T = slam.kfbuf.R[slot], slam.kfbuf.T[slot]
+    ntx, nty = slam.rcfg.grid(slam.intr)
+    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active, R, T, slam.intr)
+    colors, opac = tr._blend_inputs(p, active)
+    fields = tr._fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"]).detach()
+    C = fields.shape[0] - 1
+    tile_idx, _slot_valid = tr._bin_for(proj, slam.rcfg, ntx, nty)
+    indices = [(name, tr.prepare_bins(p, active, R, T, slam.intr, cfg).gid)
+               for name, cfg in (("tracking", slam.rcfg_track), ("mapping", slam.rcfg_map))]
+    indices.append(("dense", tile_idx.clamp(max=C).T))
+    gen = torch.Generator(device=fields.device).manual_seed(0)
+    for name, idx in indices:
+        cot = torch.randn((*idx.shape, fields.shape[1]), device=fields.device, generator=gen)
+        def ours():
+            t = fields.clone().requires_grad_(True)
+            return torch.autograd.grad(tr._gather_rows(t, idx), t, cot)[0]
+
+        def atomics():
+            t = fields.clone().requires_grad_(True)
+            out = torch.index_select(t, 0, idx.reshape(-1)).view(cot.shape)
+            return torch.autograd.grad(out, t, cot)[0]
+
+        first, second, ref = ours(), ours(), atomics()
+        scale = ref[:C].abs().amax(dim=0, keepdim=True) + 1e-12
+        err = float(((first[:C] - ref[:C]).abs() / scale).max())
+        same = torch.equal(first, second)
+        ms, lib_ms = time_ms(ours), time_ms(atomics)
+        ok = same and err <= GATHER_TOL
+        print(f"gather transpose [main-path slots, {name}, {idx.numel()} slots]: two calls "
+              f"{'equal bit for bit' if same else 'DIFFER'}, against index_add_ {err:.3e} of each "
+              f"field's largest gradient (<= {GATHER_TOL}); gather and transpose {ms:.4f} ms, "
+              f"through index_select {lib_ms:.4f} ms {'ok' if ok else 'FAILS'}", flush=True)
+        if not ok:
+            fail(f"the gather transpose on the {name} slots does not repeat or disagrees with index_add_")
 
 
 def small_render_check(device) -> None:
@@ -608,10 +652,11 @@ def run_resident_probe() -> dict:
     return launches
 
 
-def run_slam(device, frames: int, packed: bool, bf16: bool = False):
+def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits: bool = True):
     """Phase 3: the SLAM main path on the street scene, as configured
     (packed), as configured with blend_bf16 (bf16), or with both packed
-    budgets at 0 (dense)."""
+    budgets at 0 (dense). Without `hold_limits` an ATE or PSNR miss is
+    printed and does not fail."""
     import numpy as np
     import torch
 
@@ -666,6 +711,8 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False):
     for name, t in results["timers"].items():
         print(f"{label} timer {name}: {t['total_s']:.3f} s total, {t['count']} calls, "
               f"{t['mean_ms']:.2f} ms mean", flush=True)
+    print(f"{label} path: keyframes {slam.kf_indices}, map scale observations "
+          f"{[(k, round(v, 4)) for k, v in slam._scale_history]}", flush=True)
     print(f"launches on the {label} path: {json.dumps(launches)}", flush=True)
 
     if n_after_init < 2:
@@ -691,11 +738,55 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False):
     for k, v in slam.gmap.params().items():
         if not bool(torch.isfinite(v[act]).all()):
             fail(f"{label} path: non-finite map field {k}")
-    if not ate < ATE_LIMIT:
-        fail(f"{label} path: ATE RMSE {ate:.4f} m is not below {ATE_LIMIT}")
-    if not psnr > PSNR_LIMIT:
-        fail(f"{label} path: PSNR {psnr:.3f} dB is not above {PSNR_LIMIT}")
+    for ok, miss in ((ate < ATE_LIMIT, f"ATE RMSE {ate:.4f} m is not below {ATE_LIMIT}"),
+                     (psnr > PSNR_LIMIT, f"PSNR {psnr:.3f} dB is not above {PSNR_LIMIT}")):
+        if not ok and hold_limits:
+            fail(f"{label} path: {miss}")
+        if not ok:
+            print(f"{label} path: {miss} (printed only in this mode)", flush=True)
     return launches, slam
+
+
+def deterministic_street(device, frames: int, out: str, against: str | None) -> None:
+    """The float32 packed street run under
+    torch.use_deterministic_algorithms(True), where it repeats bit for bit:
+    its final map and poses are written to `out` and, with `against` (a file
+    that this mode wrote, from this checkout or another), compared with
+    those bit for bit; any difference fails. The ATE and PSNR limits are
+    printed, not held: the comparison is the result."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    _launches, slam = run_slam(device, frames, packed=True, hold_limits=False)
+    state = street_state(slam)
+    torch.save(state, out)
+    print(f"deterministic street run: {len(state)} final map and pose tensors written to {out}",
+          flush=True)
+    if against:
+        if not same_state(state, torch.load(against), f"deterministic street run against {against}"):
+            fail(f"the deterministic street run differs from {against}")
+
+
+def street_state(slam) -> dict:
+    """A street run's final map and poses, on the host."""
+    import torch
+
+    state = {f"map {k}": v.detach().cpu() for k, v in slam.gmap.params().items()}
+    state["active"] = slam.gmap.active.cpu()
+    for i, f in slam.frames.items():
+        state[f"frame {i} R"] = torch.as_tensor(f["R"]).cpu()
+        state[f"frame {i} T"] = torch.as_tensor(f["T"]).cpu()
+    return state
+
+
+def same_state(state: dict, other: dict, label: str) -> bool:
+    """Whether two street_state dicts are equal bit for bit (printed)."""
+    import torch
+
+    names = sorted(state.keys() | other.keys())
+    differ = [k for k in names if k not in state or k not in other or not torch.equal(state[k], other[k])]
+    print(f"{label}: {len(differ)} of {len(names)} tensors differ {differ[:8]}", flush=True)
+    return not differ
 
 
 def check_default_budgets(device) -> None:
@@ -724,33 +815,6 @@ def check_default_budgets(device) -> None:
         fail("SLAM's packed defaults on the card are not 96/128 with feedback")
 
 
-def main_path_packed_blocks(slam):
-    """The packed blocks the main path blends at its end: the final map seen
-    from the newest keyframe, packed as tracking, as mapping and as the
-    feedback probe packs it."""
-    import torch
-    from lvdgs_torch.ops import rasterizer as tr
-
-    p, active = slam.gmap.params(), slam.gmap.active
-    slot = slam.kf_slots[slam.kf_indices[-1]]
-    R, T = slam.kfbuf.R[slot], slam.kfbuf.T[slot]
-    ntx, nty = slam.rcfg.grid(slam.intr)
-    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active, R, T, slam.intr)
-    colors, opac = tr._blend_inputs(p, active)
-    fields = tr._fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
-    goff = torch.zeros(1, dtype=torch.int32, device=fields.device)
-    G = -(-ntx * nty // slam.rcfg_map.tile_group)
-    blocks = []
-    for name, cfg in (("tracking", slam.rcfg_track), ("mapping", slam.rcfg_map)):
-        pb = tr.prepare_bins(p, active, R, T, slam.intr, cfg)
-        blocks.append((name, [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids]))
-    tile_idx, slot_valid = tr._bin_for(proj, slam.rcfg, ntx, nty)
-    pb = tr.pack_bins(tile_idx, slot_valid, p["means"].shape[0], tile_group=slam.rcfg.tile_group,
-                      slot_budget_per_tile=slam.rcfg.max_per_tile)
-    blocks.append(("probe", [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids]))
-    return blocks, G, ntx
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=20, help="street frames of the packed run")
@@ -758,7 +822,16 @@ def main() -> None:
                         help="street frames of the packed run with blend_bf16")
     parser.add_argument("--dense-frames", type=int, default=20,
                         help="street frames of the dense run (11 give only 1 keyframe after init)")
+    parser.add_argument("--deterministic-street", metavar="FILE",
+                        help="run only the float32 packed street run, under deterministic algorithms, "
+                             "and write its final map and poses to FILE (no result line)")
+    parser.add_argument("--against", metavar="FILE",
+                        help="with --deterministic-street: compare bit for bit with a FILE it wrote")
     args = parser.parse_args()
+    if args.deterministic_street:
+        # cuBLAS repeats its reductions only with this workspace, set before
+        # its first call
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     if not os.path.isdir(os.path.join(ROOT, "lvdgs_torch")):
         fail("lvdgs_torch/ not found next to chip_smoke.py: run from a checkout of the repo")
@@ -777,6 +850,10 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
 
+    if args.deterministic_street:
+        deterministic_street(device, args.frames, args.deterministic_street, args.against)
+        return
+
     from concurrent.futures import ThreadPoolExecutor
 
     from lvdgs_torch.ops import rasterizer_cuda as rc
@@ -789,14 +866,23 @@ def main() -> None:
     rc._library(fmad=True)
     print(f"kernels built (shipped and with multiply-add contraction) and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # what each kernel holds on an SM, and nvcc's report for the packed ones
+    attrs = rc.kernel_attrs()
+    for name, a in attrs.items():
+        print(f"occupancy {name}: {a['registers']} registers, {a['local_bytes']} local (spill) bytes "
+              f"per thread, {a['static_smem']} B static shared memory, {a['blocks_per_sm']} blocks per "
+              f"SM", flush=True)
+    for line in rc.ptxas_log("blend_packed").splitlines():
+        if line.strip():
+            print(f"ptxas blend_packed.cu: {line.strip()}", flush=True)
 
     # phase 2
-    ntx, nty, K = 77, 24, 256  # the street frame: 1226x370 in 16x16 tiles
-    tp, counts = street_block(K, ntx * nty, ntx, seed=0, device=device)
+    from lvdgs_torch.tools.blocks import main_path_packed_blocks, street_packed_blocks
+
+    (tp, counts), ntx, street_packed = street_packed_blocks(device)
     report = check_kernels(tp, counts, ntx, "random street-shaped slots")
     packed_report = {}
-    for budget, sort in ((96, True), (128, True), (256, False)):
-        pargs, G = packed_from_dense(tp, counts, budget, sort, seed=budget)
+    for budget, sort, pargs, G in street_packed:
         label = f"random street-shaped slots, budget {budget}, {'sorted with caps' if sort else 'plain'}"
         # the bf16 kernels at the tracking and mapping budgets (the probe
         # has no bf16 form)
@@ -820,6 +906,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     # the same checks on the slots the packed path blends (printed only)
     check_kernels(*main_path_block(packed_slam), "main-path slots")
+    check_gather_transpose(packed_slam)
     blocks, G, bntx = main_path_packed_blocks(packed_slam)
     for name, pargs in blocks:
         # on the map's slots, bf16 against float32 is held by the reference's
@@ -828,7 +915,16 @@ def main() -> None:
         check_packed(pargs, G, bntx, f"main-path slots, {name}", timing=(name == "tracking"),
                      bf16=(name != "probe"), bf16_gate=False)
     check_bf16_main_path(packed_slam)
+    packed_state = street_state(packed_slam)
     del packed_slam, blocks
+    torch.cuda.empty_cache()
+    # the float32 street run once more, after all the card's other work: it
+    # must end where the first did, bit for bit (its launches are not
+    # counted in the kernel line)
+    _launches, slam = run_slam(device, args.frames, True)
+    if not same_state(street_state(slam), packed_state, "packed path, second run against the first"):
+        fail("the float32 street run does not repeat bit for bit")
+    del slam
     torch.cuda.empty_cache()
     launches.update(run_resident_probe())
 
@@ -847,7 +943,9 @@ def main() -> None:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"), "id": KERNEL_IDS[name], "status": "ported",
+            "library_ms": r.get("library_ms"), "kernel_ms": r.get("kernel_ms"),
+            "id": KERNEL_IDS[name], "status": "ported",
+            **attrs[ATTRS[name]],
         })
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,7 @@
 // faster (several slots per barrier, warp-level exits) is later work.
 
 #include "blend_common.cuh"
+#include "kernel_attrs.cuh"
 
 namespace {
 
@@ -237,6 +238,14 @@ int lvdgs_median_depth(const float* tp, const int* counts, float* dmed, float* o
                        int ntx, void* stream) {
   median_depth_kernel<<<T, NPIX, 0, (cudaStream_t)stream>>>(tp, counts, dmed, opac, K, T, ntx);
   return (int)cudaGetLastError();
+}
+
+// lvdgs::kernel_attrs of this library's kernel k.
+int lvdgs_blend_attrs(int k, const char** name, int* out) {
+  const lvdgs::KernelInfo table[] = {LVDGS_KERNEL(NPIX, blend_fwd_kernel),
+                                     LVDGS_KERNEL(NPIX, blend_bwd_kernel),
+                                     LVDGS_KERNEL(NPIX, median_depth_kernel)};
+  return lvdgs::kernel_attrs(table, sizeof(table) / sizeof(table[0]), k, name, out);
 }
 
 }  // extern "C"

@@ -23,16 +23,33 @@ struct SlotEval {
   float alpha, G, dx, dy, raw;
 };
 
+// A slot's offsets from a pixel and its conic power there: the part of
+// eval_slot before the exp.
+struct SlotPower {
+  float dx, dy, power;
+};
+
+__device__ __forceinline__ SlotPower slot_power(const float* p, float px, float py) {
+  SlotPower s;
+  s.dx = px - p[0];
+  s.dy = py - p[1];
+  s.power = -0.5f * (p[2] * s.dx * s.dx + p[4] * s.dy * s.dy) - p[3] * s.dx * s.dy;
+  return s;
+}
+
+__device__ __forceinline__ SlotEval slot_alpha(const float* p, const SlotPower& s) {
+  SlotEval e;
+  e.dx = s.dx;
+  e.dy = s.dy;
+  e.G = expf(s.power);
+  e.raw = p[9] * e.G;
+  e.alpha = (s.power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
+  return e;
+}
+
 // Alpha of one slot (fields p[0..9]) at pixel (px, py).
 __device__ __forceinline__ SlotEval eval_slot(const float* p, float px, float py) {
-  SlotEval e;
-  e.dx = px - p[0];
-  e.dy = py - p[1];
-  const float power = -0.5f * (p[2] * e.dx * e.dx + p[4] * e.dy * e.dy) - p[3] * e.dx * e.dy;
-  e.G = expf(power);
-  e.raw = p[9] * e.G;
-  e.alpha = (power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
-  return e;
+  return slot_alpha(p, slot_power(p, px, py));
 }
 
 // x rounded to bfloat16 (nearest even) and widened back.
@@ -47,18 +64,30 @@ __device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2b
 // two bf16 values is exact in float32). exp runs on the widened power.
 // alpha and the returned G, dx, dy are float32 values of bf16 numbers; the
 // ok test compares the rounded power in float32.
+__device__ __forceinline__ SlotPower slot_power_bf16(const float* p, float pxl, float pyl, float ox,
+                                                     float oy) {
+  SlotPower s;
+  s.dx = bf(pxl - bf(p[0] - ox));
+  s.dy = bf(pyl - bf(p[1] - oy));
+  const float ca = bf(p[2]), cb = bf(p[3]), cc = bf(p[4]);
+  const float quad = bf(bf(bf(ca * s.dx) * s.dx) + bf(bf(cc * s.dy) * s.dy));
+  s.power = bf(bf(-0.5f * quad) - bf(bf(cb * s.dx) * s.dy));
+  return s;
+}
+
+__device__ __forceinline__ SlotEval slot_alpha_bf16(const float* p, const SlotPower& s) {
+  SlotEval e;
+  e.dx = s.dx;
+  e.dy = s.dy;
+  e.G = bf(expf(s.power));
+  e.raw = bf(bf(p[9]) * e.G);
+  e.alpha = (s.power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
+  return e;
+}
+
 __device__ __forceinline__ SlotEval eval_slot_bf16(const float* p, float pxl, float pyl, float ox,
                                                    float oy) {
-  SlotEval e;
-  e.dx = bf(pxl - bf(p[0] - ox));
-  e.dy = bf(pyl - bf(p[1] - oy));
-  const float ca = bf(p[2]), cb = bf(p[3]), cc = bf(p[4]);
-  const float quad = bf(bf(bf(ca * e.dx) * e.dx) + bf(bf(cc * e.dy) * e.dy));
-  const float power = bf(bf(-0.5f * quad) - bf(bf(cb * e.dx) * e.dy));
-  e.G = bf(expf(power));
-  e.raw = bf(bf(p[9]) * e.G);
-  e.alpha = (power <= 0.0f && e.raw >= ALPHA_MIN) ? fminf(ALPHA_MAX, e.raw) : 0.0f;
-  return e;
+  return slot_alpha_bf16(p, slot_power_bf16(p, pxl, pyl, ox, oy));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int NF = 16;  // fields per row
@@ -88,6 +90,15 @@ int lvdgs_resident_scatter(const int* idx, const float* upd, float* out, int G, 
   resident_scatter_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
       idx, upd, out, n);
   return (int)cudaGetLastError();
+}
+
+// lvdgs::kernel_attrs of this library's kernel k; the gather at the
+// probe's TG = 8 tiles per group.
+int lvdgs_resident_attrs(int k, const char** name, int* out) {
+  const lvdgs::KernelInfo table[] = {LVDGS_KERNEL(8 * NF, resident_gather_kernel),
+                                     LVDGS_KERNEL(256, zero_kernel),
+                                     LVDGS_KERNEL(256, resident_scatter_kernel)};
+  return lvdgs::kernel_attrs(table, sizeof(table) / sizeof(table[0]), k, name, out);
 }
 
 }  // extern "C"

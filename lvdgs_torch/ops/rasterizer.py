@@ -299,10 +299,45 @@ def _fields(mean2d, conic, colors, opacities, depth) -> torch.Tensor:
     return torch.cat([fields, fields.new_zeros(1, fields.shape[1])], dim=0)
 
 
+class _SentinelGather(torch.autograd.Function):
+    """table[idx] (idx flat) whose transpose adds each row's gradients in a
+    fixed order, so that a run repeats bit for bit on the card.
+
+    index_select's own backward is index_add_, whose atomics add in the
+    order the threads happen to run: the map's gradients then differ in
+    their last bits from run to run, and the SLAM loop's keyframe tests
+    carry that into other trajectories. Here the backward sorts idx
+    (stably) and sums each row's run of gradients in index order, as
+    index_add_ does on the CPU, so the two devices add in the same order.
+    The table's last row is the zero sentinel of the empty slots (_fields),
+    a constant: its run, most of a dense block, is skipped and its
+    gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        rows = ctx.rows
+        sorted_idx, order = torch.sort(idx, stable=True)
+        # row r sums sorted positions [offsets[r], offsets[r + 1]); the
+        # sentinel's segment (the last) is empty
+        bounds = torch.arange(rows + 1, device=idx.device, dtype=idx.dtype).clamp(max=rows - 1)
+        offsets = torch.searchsorted(sorted_idx, bounds)
+        flat = grad.reshape(grad.shape[0], -1).index_select(0, order)
+        dtable = torch.segment_reduce(flat, "sum", offsets=offsets, axis=0, unsafe=True, initial=0)
+        return dtable.view(rows, *grad.shape[1:]), None
+
+
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for an index array of any shape, through index_select (see
-    _tile_params)."""
-    return torch.index_select(table, 0, idx.reshape(-1)).view(*idx.shape, *table.shape[1:])
+    """table[idx] for an index array of any shape, through index_select
+    with a deterministic transpose (_SentinelGather; see _tile_params).
+    The table's last row must be the zero sentinel: it gets no gradient."""
+    return _SentinelGather.apply(table, idx.reshape(-1)).view(*idx.shape, *table.shape[1:])
 
 
 def _tile_params(tile_idx, mean2d, conic, colors, opacities, depth):
@@ -310,11 +345,11 @@ def _tile_params(tile_idx, mean2d, conic, colors, opacities, depth):
     (index C is a zero sentinel row). Differentiable: its transpose is the
     per-Gaussian scatter-add.
 
-    index_select, whose backward is index_add_ (atomic adds on CUDA), not
-    advanced indexing, whose backward sorts the indices and accumulates
+    Not advanced indexing, whose backward sorts the indices and accumulates
     each run of equal indices in one thread: every empty slot holds the
     sentinel, so that run is most of the (K, T) block and took ~98 ms per
-    backward at 1226x370 on the H100 (PERF.md)."""
+    backward at 1226x370 on the H100 (PERF.md). _gather_rows sorts too, but
+    skips the sentinel's run."""
     C = mean2d.shape[0]
     return _gather_rows(_fields(mean2d, conic, colors, opacities, depth), tile_idx.clamp(max=C).T)
 
@@ -525,8 +560,8 @@ def probe_saturation_caps(tile_idx, slot_valid, proj, params, active, cfg: Rende
                    slot_budget_per_tile=cfg.max_per_tile)
     colors, opac = _blend_inputs(params, active)
     tp = _gather_rows(_fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"]), pb.gid)
-    _acc, _trans, wmax = packed_blend_forward(tp, pb.cg, pb.k0, _goff(tp.device), pb.tids,
-                                              -(-T // cfg.tile_group), ntx, probe_wmax=True)
+    _acc, _trans, wmax, _march = packed_blend_forward(tp, pb.cg, pb.k0, _goff(tp.device), pb.tids,
+                                                      -(-T // cfg.tile_group), ntx, probe_wmax=True)
     caps = saturation_caps(pb, wmax, T, tile_group=cfg.tile_group, max_per_tile=cfg.max_per_tile,
                            tol=cfg.feedback_tol)
     if not want_touched:

@@ -43,13 +43,17 @@ may multiply its transmittance by a few more slots than this rule does.
 Contributions are identical (a pixel at T <= T_EPS contributes nothing);
 the final transmittance of saturated pixels and the backward's
 ``-g_T * T_final / (1 - alpha)`` term through them differ by T_EPS-sized
-amounts.
+amounts. The packed forward also returns each tile's march length (the
+slots it marched under this rule); the packed backward kernel marches that
+many slots instead of testing the rule again, and its plain version tests
+the rule itself.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -75,7 +79,7 @@ _SOURCES = ("blend", "blend_packed", "resident")
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -128,7 +132,8 @@ def build_libraries(fmad: bool = False) -> dict:
     on or off; with the same rounding, the forward kernels and the median
     reproduce the plain versions bit for bit. ``fmad=True`` builds with
     nvcc's default contraction; chip_smoke.py times that build against this
-    one."""
+    one. nvcc's ``-Xptxas -v`` report (registers, spills, shared memory per
+    kernel) is kept beside each library as ``lib<name>.ptxas.txt``."""
     flags = [*_NVCC_FLAGS, f"-fmad={'true' if fmad else 'false'}"]
     h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(f for f in _CSRC.iterdir() if f.suffix in (".cu", ".cuh")):
@@ -151,6 +156,7 @@ def build_libraries(fmad: bool = False) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
         else:
+            (out_dir / f"lib{name}.ptxas.txt").write_text(err)
             os.replace(tmp, libs[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -168,12 +174,15 @@ def _load(fmad: bool) -> types.SimpleNamespace:
         ("blend", "lvdgs_blend_fwd"): [p, p, p, p, p, i, i, i, p],
         ("blend", "lvdgs_blend_bwd"): [p, p, p, p, p, p, p, i, i, i, p],
         ("blend", "lvdgs_median_depth"): [p, p, p, p, i, i, i, p],
-        ("blend_packed", "lvdgs_packed_fwd"): [p, p, p, p, p, p, p, i, i, i, i, i, p],
-        ("blend_packed", "lvdgs_packed_bwd"): [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-        ("blend_packed", "lvdgs_packed_fwd_bf16"): [p, p, p, p, p, p, p, i, i, i, i, i, p],
-        ("blend_packed", "lvdgs_packed_bwd_bf16"): [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_fwd"): [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_bwd"): [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_fwd_bf16"): [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        ("blend_packed", "lvdgs_packed_bwd_bf16"): [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
         ("resident", "lvdgs_resident_gather"): [p, p, p, i, i, i, i, p],
         ("resident", "lvdgs_resident_scatter"): [p, p, p, i, i, i, i, p],
+        ("blend", "lvdgs_blend_attrs"): [i, p, p],
+        ("blend_packed", "lvdgs_packed_attrs"): [i, p, p],
+        ("resident", "lvdgs_resident_attrs"): [i, p, p],
     }
     fns = {}
     for (lib, name), types_ in argtypes.items():
@@ -197,6 +206,37 @@ def load_kernels() -> float:
     t0 = time.perf_counter()
     _library()
     return time.perf_counter() - t0
+
+
+def library_attrs(attrs_fn) -> dict:
+    """{kernel: {registers, local_bytes, static_smem, blocks_per_sm,
+    threads}} of every kernel that one library's attrs function lists
+    (csrc/kernel_attrs.cuh): cudaFuncGetAttributes (registers per thread,
+    local memory per thread: spills and local arrays, static shared memory
+    per block) and cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+    kernel's launch block size. `attrs_fn` is the ctypes function with
+    argtypes (int, void*, void*)."""
+    res = {}
+    for k in itertools.count():
+        name, out = ctypes.c_char_p(), (ctypes.c_int * 5)()
+        err = attrs_fn(k, ctypes.byref(name), out)
+        if err == -1:
+            return res
+        _check_launch(err, "kernel attrs")
+        res[name.value.decode()] = dict(zip(
+            ("registers", "local_bytes", "static_smem", "blocks_per_sm", "threads"), out))
+
+
+def kernel_attrs() -> dict:
+    """library_attrs of every kernel of the shipped build."""
+    lib = _library()
+    return {**library_attrs(lib.lvdgs_blend_attrs), **library_attrs(lib.lvdgs_packed_attrs),
+            **library_attrs(lib.lvdgs_resident_attrs)}
+
+
+def ptxas_log(name: str = "blend_packed") -> str:
+    """nvcc's -Xptxas -v report of the shipped build of csrc/<name>.cu."""
+    return build_libraries()[name].with_name(f"lib{name}.ptxas.txt").read_text()
 
 
 def _check_launch(err: int, name: str) -> None:
@@ -455,7 +495,9 @@ def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
     state = {"trans": torch.ones((G * TG, P), dtype=torch.float32, device=dev)}
     acc = torch.zeros((G * TG, 4, P), dtype=torch.float32, device=dev)
     nt = torch.zeros((NB, KC, TG), dtype=torch.int32, device=dev)
+    march = torch.zeros((G + 1) * TG, dtype=torch.int32, device=dev)
     for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
+        march[:G * TG] += alive.to(torch.int32)
         p = tp[b, kc].reshape(G * TG, NF)
         w, state["trans"], acc = _slot_forward(p, px, py, alive, state["trans"], acc, bf16)
         if probe_wmax:
@@ -465,11 +507,15 @@ def packed_blend_forward_plain(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
         else:
             continue
         nt[b[has], kc] = val.reshape(G, TG)[has]
-    return _to_group_major(acc, G, TG, 0.0), _to_group_major(state["trans"], G, TG, 1.0), nt
+    return (_to_group_major(acc, G, TG, 0.0), _to_group_major(state["trans"], G, TG, 1.0), nt,
+            march.reshape(G + 1, TG))
 
 
 def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, dtrans,
-                                n_groups: int, ntx: int, bf16: bool = False):
+                                n_groups: int, ntx: int, bf16: bool = False, march=None):
+    """Marches by the stop rule itself; a given `march` (the forward's march
+    lengths, which the kernel marches instead) must equal what it marched,
+    else ValueError."""
     NB, _, TG, _ = tp.shape
     G = n_groups
     dev = tp.device
@@ -478,11 +524,15 @@ def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, 
     state = {"trans": torch.ones((G * TG, P), dtype=torch.float32, device=dev)}
     prefix = torch.zeros((G * TG, 4, P), dtype=torch.float32, device=dev)
     dtp = torch.zeros((NB, KC, TG, NF), dtype=torch.float32, device=dev)
+    marched = torch.zeros((G + 1) * TG, dtype=torch.int32, device=dev)
     for alive, b, has, kc in _packed_slots(tp, start, nch, lambda: state["trans"]):
+        marched[:G * TG] += alive.to(torch.int32)
         p = tp[b, kc].reshape(G * TG, NF)
         d, state["trans"], prefix = _slot_backward(p, px, py, alive, state["trans"], prefix, acc,
                                                    trans_final, dacc, dtrans, bf16)
         dtp[b[has], kc] = d.reshape(G, TG, NF)[has]
+    if march is not None and not torch.equal(march.reshape(-1), marched):
+        raise ValueError("march is not the march lengths of the forward on these inputs")
     return dtp
 
 
@@ -560,15 +610,17 @@ def _packed_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bo
     acc = torch.empty((n_groups + 1, 4, TG, P), dtype=torch.float32, device=tp.device)
     trans = torch.empty((n_groups + 1, TG, P), dtype=torch.float32, device=tp.device)
     nt = torch.empty((NB, KC, TG), dtype=torch.int32, device=tp.device)
+    march = torch.empty((n_groups + 1, TG), dtype=torch.int32, device=tp.device)
     mode = 2 if probe_wmax else (1 if with_nt else 0)
     lib = _library()
     fn, wrapper = ((lib.lvdgs_packed_fwd_bf16, packed_blend_forward_bf16) if bf16
                    else (lib.lvdgs_packed_fwd, packed_blend_forward))
     err = fn(tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
-             trans.data_ptr(), nt.data_ptr(), NB, n_groups, TG, ntx, mode, _stream())
+             trans.data_ptr(), nt.data_ptr(), march.data_ptr(), NB, n_groups, TG, ntx, mode,
+             _stream())
     _check_launch(err, wrapper.__name__)
     wrapper.launches.add()
-    return acc, trans, nt
+    return acc, trans, nt, march
 
 
 def packed_blend_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
@@ -583,10 +635,12 @@ def packed_blend_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
     shifts them (tile-sharded rendering). k0 is taken for the interface of
     the Pallas kernel; chunk order within a group already gives it.
 
-    Returns (acc (G+1, 4, TG, P), trans (G+1, TG, P), nt (NB, KC, TG) int32)
-    in group order, row G a filler (zeros, ones). nt holds per-slot touched
-    pixel counts (`with_nt`), or with `probe_wmax` each slot's largest blend
-    weight as ceil(w * 65536), or zeros."""
+    Returns (acc (G+1, 4, TG, P), trans (G+1, TG, P), nt (NB, KC, TG) int32,
+    march (G+1, TG) int32) in group order, row G a filler (zeros, ones,
+    zeros). nt holds per-slot touched pixel counts (`with_nt`), or with
+    `probe_wmax` each slot's largest blend weight as ceil(w * 65536), or
+    zeros. march is the number of slots each tile marched under the stop
+    rule; packed_blend_backward takes it and marches as many."""
     return _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, probe_wmax, False)
 
 
@@ -597,43 +651,55 @@ def packed_blend_forward_bf16(tp, cg, k0, goff, tids, n_groups: int, ntx: int,
     return _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, False, True)
 
 
-def _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int, ntx: int,
-                     bf16: bool):
-    """B5 (`bf16`: B5-bf16) for CUDA tensors, its plain version for CPU ones."""
-    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups, acc, trans, dacc, dtrans)
+def _packed_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans, n_groups: int,
+                     ntx: int, bf16: bool):
+    """B5 (`bf16`: B5-bf16) for CUDA tensors, its plain version for CPU ones
+    (which applies the stop rule itself and refuses a `march` that differs
+    from what it marched)."""
+    _check_packed_inputs(tp, cg, k0, goff, tids, n_groups, march, acc, trans, dacc, dtrans)
     NB, _, TG, _ = tp.shape
-    for name, x, shape in (("acc", acc, (n_groups + 1, 4, TG, P)), ("dacc", dacc, (n_groups + 1, 4, TG, P)),
-                           ("trans", trans, (n_groups + 1, TG, P)),
-                           ("dtrans", dtrans, (n_groups + 1, TG, P))):
-        if x.shape != shape or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
+    for name, x, shape, dtype in (
+            ("march", march, (n_groups + 1, TG), torch.int32),
+            ("acc", acc, (n_groups + 1, 4, TG, P), torch.float32),
+            ("dacc", dacc, (n_groups + 1, 4, TG, P), torch.float32),
+            ("trans", trans, (n_groups + 1, TG, P), torch.float32),
+            ("dtrans", dtrans, (n_groups + 1, TG, P), torch.float32)):
+        if x.shape != shape or x.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
     if tp.device.type == "cpu":
         return packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans,
-                                           n_groups, ntx, bf16=bf16)
+                                           n_groups, ntx, bf16=bf16, march=march)
     dtp = torch.empty((NB, KC, TG, NF), dtype=torch.float32, device=tp.device)
     lib = _library()
     fn, wrapper = ((lib.lvdgs_packed_bwd_bf16, packed_blend_backward_bf16) if bf16
                    else (lib.lvdgs_packed_bwd, packed_blend_backward))
-    err = fn(tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), acc.data_ptr(),
-             trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(), NB, n_groups, TG,
-             ntx, _stream())
+    err = fn(tp.data_ptr(), cg.data_ptr(), tids.data_ptr(), goff.data_ptr(), march.data_ptr(),
+             acc.data_ptr(), trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(),
+             NB, n_groups, TG, ntx, _stream())
     _check_launch(err, wrapper.__name__)
     wrapper.launches.add()
     return dtp
 
 
-def packed_blend_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
+def packed_blend_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans, n_groups: int,
                           ntx: int):
-    """VJP of packed_blend_forward w.r.t. tp -> dtp (NB, KC, TG, NF); slots
-    the march never reaches (and padding chunks) get zeros."""
-    return _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups, ntx, False)
+    """VJP of packed_blend_forward w.r.t. tp -> dtp (NB, KC, TG, NF), given
+    the forward's march lengths, acc and trans; slots the march never
+    reaches (and padding chunks) get zeros. `march` must be what
+    packed_blend_forward returned on these inputs: the kernel marches that
+    many slots per tile and cannot check it (another forward's march gives
+    wrong gradients); on the CPU the plain version checks it and raises
+    ValueError where it differs."""
+    return _packed_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans, n_groups, ntx,
+                            False)
 
 
-def packed_blend_backward_bf16(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups: int,
-                               ntx: int):
+def packed_blend_backward_bf16(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans,
+                               n_groups: int, ntx: int):
     """VJP of packed_blend_forward_bf16: the bf16 weights replayed, the rest
-    in float32."""
-    return _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, n_groups, ntx, True)
+    in float32. `march` as in packed_blend_backward, from the bf16 forward."""
+    return _packed_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans, n_groups, ntx,
+                            True)
 
 
 blend_forward.launches = LaunchCounter()
@@ -677,23 +743,25 @@ def blend(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
 class PackedBlendFunction(torch.autograd.Function):
     """packed_blend_forward with packed_blend_backward as its VJP (with
     `bf16` their bf16 variants; no gradient to the chunk maps or to the
-    per-slot counts)."""
+    per-slot counts). The forward's march lengths are saved for the
+    backward, which marches as many slots per tile."""
 
     @staticmethod
     def forward(ctx, tp, cg, k0, goff, tids, n_groups, ntx, with_nt, bf16):
-        acc, trans, nt = _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt, False, bf16)
-        ctx.save_for_backward(tp, cg, k0, goff, tids, acc, trans)
+        acc, trans, nt, march = _packed_forward(tp, cg, k0, goff, tids, n_groups, ntx, with_nt,
+                                                False, bf16)
+        ctx.save_for_backward(tp, cg, k0, goff, tids, march, acc, trans)
         ctx.n_groups, ctx.ntx, ctx.bf16 = n_groups, ntx, bf16
         ctx.mark_non_differentiable(nt)
         return acc, trans, nt
 
     @staticmethod
     def backward(ctx, dacc, dtrans, _dnt):
-        tp, cg, k0, goff, tids, acc, trans = ctx.saved_tensors
+        tp, cg, k0, goff, tids, march, acc, trans = ctx.saved_tensors
         dacc = torch.zeros_like(acc) if dacc is None else dacc.contiguous()
         dtrans = torch.zeros_like(trans) if dtrans is None else dtrans.contiguous()
-        dtp = _packed_backward(tp, cg, k0, goff, tids, acc, trans, dacc, dtrans, ctx.n_groups,
-                               ctx.ntx, ctx.bf16)
+        dtp = _packed_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans,
+                               ctx.n_groups, ctx.ntx, ctx.bf16)
         return dtp, None, None, None, None, None, None, None, None
 
 

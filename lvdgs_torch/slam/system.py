@@ -242,6 +242,9 @@ class SLAM:
                 "are NOT prior-free")
         self.sim_prior_trans_noise = tr.get("sim_prior_trans_noise", 0.02)
         self.sim_prior_rot_noise_deg = tr.get("sim_prior_rot_noise_deg", 0.2)
+        # observe the map scale at the init keyframe too (see _initialize);
+        # False keeps the reference's scale of 1.0 until the second keyframe
+        self.sim_prior_scale_at_init = tr.get("sim_prior_scale_at_init", True)
         self._map_scale_obs: Optional[float] = None
         self._scale_history: list = []
         self.mono_depth_source = ds_cfg.get("mono_depth_source", "dataset")
@@ -663,6 +666,18 @@ class SLAM:
         self.kf_slots[idx] = slam_state.add_keyframe(self.kfbuf, cam)
         self.current_window = [idx]
         self._backend_init(idx, cam, depth)
+        if self.pose_seed_mode == "sim_prior" and self.sim_prior_scale_at_init:
+            # The emulated prior is a relative pose in map scale, as the real
+            # PnP against rendered depth is. The map takes its scale from
+            # the init frame's mono depth, so observe it here as at every
+            # later keyframe (_make_keyframe): with the fallback of 1.0
+            # until the second keyframe, the street scene's seeds overshoot
+            # by 1/0.8, tracking takes back only part of it, and the scale
+            # observed at the second keyframe, which every later seed
+            # inherits, can come out wrong (ROADMAP C6).
+            md, _mo = rasterize_median_depth(self.gmap.params(), self.gmap.active, cam.R, cam.T,
+                                             self.intr, self.rcfg)
+            self._observe_map_scale(md[0], cam)
 
     def _track(self, idx: int, cam: Camera):
         cam = self._pose_seed(idx, cam)

@@ -59,7 +59,8 @@ def _port_args(tp, jpb):
 def test_plain_packed_bf16_forward_matches_pallas(packed_block, with_nt):
     tp, jpb = packed_block
     acc_j, trans_j, nt_j = _ref_fwd(tp, jpb, with_nt)
-    acc, trans, nt = rc.packed_blend_forward_bf16(*_port_args(tp, jpb), 3, NTX, with_nt=with_nt)
+    acc, trans, nt, _march = rc.packed_blend_forward_bf16(*_port_args(tp, jpb), 3, NTX,
+                                                          with_nt=with_nt)
     G = 3  # row G is unwritten by Pallas
     np.testing.assert_allclose(to_np(acc)[:G, :3], np.asarray(acc_j)[:G, :3], atol=3e-4)
     np.testing.assert_allclose(to_np(acc)[:G, 3], np.asarray(acc_j)[:G, 3], atol=3e-3)
@@ -85,9 +86,9 @@ def test_plain_packed_bf16_backward_matches_pallas(packed_block):
         tile_group=TG, n_groups=3, interpret=True, bf16=True), tp, jpb.cg, jpb.k0,
         jnp.zeros((1,), jnp.int32), jpb.tids, acc_j, trans_j, jnp.asarray(dacc), jnp.asarray(dtrans))
     args = _port_args(tp, jpb)
-    acc, trans, _ = rc.packed_blend_forward_bf16(*args, 3, NTX, with_nt=False)
-    dtp = rc.packed_blend_backward_bf16(*args, acc, trans, torch.tensor(dacc), torch.tensor(dtrans),
-                                        3, NTX)
+    acc, trans, _, march = rc.packed_blend_forward_bf16(*args, 3, NTX, with_nt=False)
+    dtp = rc.packed_blend_backward_bf16(*args, march, acc, trans, torch.tensor(dacc),
+                                        torch.tensor(dtrans), 3, NTX)
     for f in range(rc.NF):
         normalized_close(np.asarray(dtp_j)[..., f], dtp[..., f], 2e-3)
 

@@ -61,7 +61,7 @@ def test_kernel_sources_are_in_the_package():
         "blend.cu": ((blend + "blend_fwd_kernel", blend + "blend_bwd_kernel",
                       blend + "median_depth_kernel"),
                      ("lvdgs_blend_fwd", "lvdgs_blend_bwd", "lvdgs_median_depth")),
-        "blend_packed.cu": (("template <bool BF16>\n" + blend + "packed_fwd_kernel",
+        "blend_packed.cu": (("template <bool BF16, int MODE>\n" + blend + "packed_fwd_kernel",
                              "template <bool BF16>\n" + blend + "packed_bwd_kernel"),
                             ("lvdgs_packed_fwd", "lvdgs_packed_bwd", "lvdgs_packed_fwd_bf16",
                              "lvdgs_packed_bwd_bf16")),

@@ -106,18 +106,21 @@ def _packed_block(T, ntx, budget, K, seed, device, sort_by_depth=True, TG=16):
 @pytest.mark.parametrize("T,ntx,budget,K", [(40, 8, 96, 128), (160, 16, 128, 256)])
 def test_packed_kernels_match_plain(cuda_device, flags, T, ntx, budget, K):
     args, G = _packed_block(T, ntx, budget, K, T + K, cuda_device)
-    acc, trans, nt = rc.packed_blend_forward(*args, G, ntx, **flags)
-    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, ntx, **flags)
+    acc, trans, nt, march = rc.packed_blend_forward(*args, G, ntx, **flags)
+    acc_p, trans_p, nt_p, march_p = rc.packed_blend_forward_plain(*args, G, ntx, **flags)
     torch.testing.assert_close(acc, acc_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(trans, trans_p, atol=1e-5, rtol=0)
     assert torch.equal(nt, nt_p)
+    assert torch.equal(march, march_p)
     assert bool(nt.any()) == (flags != dict(with_nt=False))
     g = torch.Generator(device=cuda_device).manual_seed(1)
     dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
     dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
-    dtp = rc.packed_blend_backward(*args, acc, trans, dacc, dtrans, G, ntx)
+    dtp = rc.packed_blend_backward(*args, march, acc, trans, dacc, dtrans, G, ntx)
     dtp_p = rc.packed_blend_backward_plain(*args, acc, trans, dacc, dtrans, G, ntx)
     _rel_close(dtp, dtp_p, 1e-5)
+    # its per-slot sums run in a fixed order: launched again, the same bits
+    assert torch.equal(rc.packed_blend_backward(*args, march, acc, trans, dacc, dtrans, G, ntx), dtp)
     torch.cuda.synchronize()
 
 
@@ -126,18 +129,22 @@ def test_packed_kernels_match_plain(cuda_device, flags, T, ntx, budget, K):
 @pytest.mark.parametrize("T,ntx,budget,K", [(40, 8, 96, 128), (160, 16, 128, 256)])
 def test_packed_bf16_kernels_match_plain(cuda_device, with_nt, T, ntx, budget, K):
     args, G = _packed_block(T, ntx, budget, K, T + K, cuda_device)
-    acc, trans, nt = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=with_nt)
-    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, ntx, with_nt=with_nt, bf16=True)
+    acc, trans, nt, march = rc.packed_blend_forward_bf16(*args, G, ntx, with_nt=with_nt)
+    acc_p, trans_p, nt_p, march_p = rc.packed_blend_forward_plain(*args, G, ntx, with_nt=with_nt,
+                                                                  bf16=True)
     assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
+    assert torch.equal(march, march_p)
     assert bool(nt.any()) == with_nt
     acc32 = rc.packed_blend_forward(*args, G, ntx, with_nt=with_nt)[0]
     assert not torch.equal(acc, acc32)  # the bf16 weights ran
     g = torch.Generator(device=cuda_device).manual_seed(1)
     dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
     dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
-    dtp = rc.packed_blend_backward_bf16(*args, acc, trans, dacc, dtrans, G, ntx)
+    dtp = rc.packed_blend_backward_bf16(*args, march, acc, trans, dacc, dtrans, G, ntx)
     dtp_p = rc.packed_blend_backward_plain(*args, acc, trans, dacc, dtrans, G, ntx, bf16=True)
     _rel_close(dtp, dtp_p, 1e-5)
+    assert torch.equal(rc.packed_blend_backward_bf16(*args, march, acc, trans, dacc, dtrans, G, ntx),
+                       dtp)
     torch.cuda.synchronize()
 
 
@@ -160,7 +167,7 @@ def test_packed_forward_equals_dense_on_card(cuda_device):
     T, ntx, K = 64, 8, 128
     tp, counts, _ = _random_block(K, T, 9, cuda_device, ntx)
     args, G = _packed_block(T, ntx, K, K, 9, cuda_device, sort_by_depth=False)
-    acc_p, trans_p, _ = rc.packed_blend_forward(*args, G, ntx)
+    acc_p, trans_p, _, _ = rc.packed_blend_forward(*args, G, ntx)
     acc_d, trans_d, _ = rc.blend_forward(tp, counts, ntx)
     assert torch.equal(rc._from_group_major(acc_p, G), acc_d)
     assert torch.equal(rc._from_group_major(trans_p, G), trans_d)
@@ -210,10 +217,12 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
     rc.blend_backward(tp, counts, acc, trans, torch.ones_like(acc), torch.ones_like(trans), ntx)
     rc.median_depth(tp, counts, ntx)
     args, G = _packed_block(24, 8, 64, 64, 3, cuda_device)
-    acc, trans, _ = rc.packed_blend_forward(*args, G, 8)
-    rc.packed_blend_backward(*args, acc, trans, torch.ones_like(acc), torch.ones_like(trans), G, 8)
-    acc, trans, _ = rc.packed_blend_forward_bf16(*args, G, 8)
-    rc.packed_blend_backward_bf16(*args, acc, trans, torch.ones_like(acc), torch.ones_like(trans), G, 8)
+    acc, trans, _, march = rc.packed_blend_forward(*args, G, 8)
+    rc.packed_blend_backward(*args, march, acc, trans, torch.ones_like(acc), torch.ones_like(trans),
+                             G, 8)
+    acc, trans, _, march = rc.packed_blend_forward_bf16(*args, G, 8)
+    rc.packed_blend_backward_bf16(*args, march, acc, trans, torch.ones_like(acc),
+                                  torch.ones_like(trans), G, 8)
     assert [w.launches.count - b for w, b in zip(rc.KERNEL_WRAPPERS, before)] == [1] * 7
     before = [w.launches.count for w in rs.KERNEL_WRAPPERS]
     idx = torch.zeros((2, 4, 8), dtype=torch.int32, device=cuda_device)
@@ -245,9 +254,8 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
     rc.median_depth(tp, counts, ntx)
     args, G = _packed_block(24, 8, 64, 64, 4, "cpu")
-    acc, trans, nt = rc.packed_blend_forward(*args, G, 8)
-    acc_p, trans_p, nt_p = rc.packed_blend_forward_plain(*args, G, 8)
-    assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
+    out = rc.packed_blend_forward(*args, G, 8)
+    assert all(torch.equal(o, p) for o, p in zip(out, rc.packed_blend_forward_plain(*args, G, 8)))
     assert [w.launches.count for w in rc.KERNEL_WRAPPERS] == before
     with pytest.raises(ValueError, match="device"):
         rc.blend_forward(tp.to("meta"), counts.to("meta"), ntx)

@@ -177,7 +177,7 @@ def _torch_fwd(tp, jpb, **kw):
 def test_plain_packed_forward_matches_pallas(packed_block, flags):
     tp, jpb = packed_block
     acc_j, trans_j, nt_j = _jax_fwd(tp, jpb, **flags)
-    acc, trans, nt = _torch_fwd(tp, jpb, **flags)
+    acc, trans, nt, march = _torch_fwd(tp, jpb, **flags)
     G = 3  # row G is unwritten by Pallas
     np.testing.assert_allclose(to_np(acc)[:G, :3], np.asarray(acc_j)[:G, :3], atol=3e-4)
     np.testing.assert_allclose(to_np(acc)[:G, 3], np.asarray(acc_j)[:G, 3], atol=3e-3)
@@ -191,6 +191,7 @@ def test_plain_packed_forward_matches_pallas(packed_block, flags):
         assert not nt.any()
     np.testing.assert_array_equal(to_np(acc)[G], 0.0)
     np.testing.assert_array_equal(to_np(trans)[G], 1.0)
+    np.testing.assert_array_equal(to_np(march)[G], 0)
 
 
 def test_plain_packed_backward_matches_pallas(packed_block):
@@ -205,8 +206,8 @@ def test_plain_packed_backward_matches_pallas(packed_block):
     tpb = _pair_bins(jpb)
     tpt = torch.tensor(np.asarray(tp))
     goff = torch.zeros(1, dtype=torch.int32)
-    acc, trans, _ = rc.packed_blend_forward(tpt, tpb.cg, tpb.k0, goff, tpb.tids, 3, NTX)
-    dtp = rc.packed_blend_backward(tpt, tpb.cg, tpb.k0, goff, tpb.tids, acc, trans,
+    acc, trans, _, march = rc.packed_blend_forward(tpt, tpb.cg, tpb.k0, goff, tpb.tids, 3, NTX)
+    dtp = rc.packed_blend_backward(tpt, tpb.cg, tpb.k0, goff, tpb.tids, march, acc, trans,
                                    torch.tensor(dacc), torch.tensor(dtrans), 3, NTX)
     for f in range(rc.NF):
         normalized_close(np.asarray(dtp_j)[..., f], dtp[..., f], 2e-3)
@@ -226,8 +227,9 @@ def test_packed_forward_equals_dense_when_budget_does_not_bind():
     tile_idx_t = torch.tensor(np.asarray(tile_idx)).long()
     slot_valid_t = torch.tensor(np.asarray(slot_valid))
     pb = tr.pack_bins(tile_idx_t, slot_valid_t, 120, tile_group=TG, slot_budget_per_tile=64)
-    acc_p, trans_p, nt_p = rc.packed_blend_forward(tr._gather_rows(fields, pb.gid), pb.cg, pb.k0,
-                                                   torch.zeros(1, dtype=torch.int32), pb.tids, 3, NTX)
+    acc_p, trans_p, nt_p, _ = rc.packed_blend_forward(tr._gather_rows(fields, pb.gid), pb.cg,
+                                                      pb.k0, torch.zeros(1, dtype=torch.int32),
+                                                      pb.tids, 3, NTX)
     tp = tr._gather_rows(fields, tile_idx_t.clamp(max=120).T)
     acc_d, trans_d, nt_d = rc.blend_forward(tp, slot_valid_t.sum(1, dtype=torch.int32), NTX)
     assert torch.equal(rc._from_group_major(acc_p, 3), acc_d)
