@@ -19,12 +19,13 @@ Phases, each of which must pass:
    its plain version (and, for the resident kernels, the library call that
    computes the same function): the blend kernels through their wrappers
    (ms, as a caller launches them) and straight from their libraries on
-   preallocated outputs (kernel_ms, without the wrappers' host time); the
-   packed forward's march lengths must equal its plain version's, and the
-   packed backward launched twice on the same inputs must give the same
-   bits; show that the packed blend equals the dense one bit for bit where
-   its budget does not bind; and check the card's render of a small scene
-   against the CPU render and the NumPy oracle;
+   preallocated outputs (kernel_ms, without the wrappers' host time); each
+   blend forward's (dense and packed) march lengths and touch counts must
+   equal its plain version's, and each blend backward launched twice on the
+   same inputs must give the same bits; show that the packed blend equals
+   the dense one bit for bit where its budget does not bind; and check the
+   card's render of a small scene against the CPU render and the NumPy
+   oracle;
 3. drive the SLAM loop (SLAM.run) on configs/mono/synthetic/street.yaml at
    full width three times: as configured (packed tracking at 96 and mapping
    at 128 slots per tile, with saturation feedback), which must launch B1,
@@ -32,25 +33,27 @@ Phases, each of which must pass:
    B5-bf16 and no float32 B5; and dense (budgets 0), which must launch B1, B2
    and B3; each must end with finite poses and map, at least 2 keyframes
    after init, ATE RMSE < 0.08 m and PSNR > 17 dB; then hold the kernels
-   against their plain versions again on the slots the packed run's final
-   map gives from its newest keyframe, and its bf16 renders against the
-   float32 ones from every keyframe by the reference's own measure (image
-   and parameter gradients), and the gather's transpose on them against
-   index_select's (its own sum must repeat bit for bit); then drive the
-   float32 street run once more, which must end with the first run's map
-   and poses bit for bit; then drive the resident-table probe
+   against their plain versions again on the slots the packed and the
+   dense run's final maps give from their newest keyframes (B1-B3 on both,
+   timed beside the random block's), and the packed run's bf16 renders
+   against the float32 ones from every keyframe by the reference's own
+   measure (image and parameter gradients), and the gather's transpose on
+   them against index_select's (its own sum must repeat bit for bit); then
+   drive the float32 street run once more, which must end with the first
+   run's map and poses bit for bit; then drive the resident-table probe
    (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
 4. print the per-kernel JSON line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 outside a checkout, or when any phase fails.
 
-    python3 chip_smoke.py --deterministic-street FILE [--against OTHER]
+    python3 chip_smoke.py --deterministic-street FILE [--dense] [--against OTHER]
 
-runs only the float32 packed street run, under deterministic algorithms,
-writes its final map and poses to FILE and compares them bit for bit with
-OTHER, written the same way by another checkout: the test that a kernel
-change computes what its parent computed.
+runs only the float32 packed street run (with --dense, the dense one, which
+goes through B1 and B2), under deterministic algorithms, writes its final
+map and poses to FILE and compares them bit for bit with OTHER, written the
+same way by another checkout: the test that a kernel change computes what
+its parent computed.
 """
 from __future__ import annotations
 
@@ -160,7 +163,8 @@ def errors(name: str, out, ref) -> tuple[float, float]:
 
 def check_kernels(tp, counts, ntx: int, label: str) -> dict:
     """Each kernel against its plain version on one (K, T, 10) slot block,
-    with a random cotangent for the backward; then both timed, and the
+    with a random cotangent for the backward (B1's touch counts and march
+    lengths equal, B2 launched twice equal bits); then both timed, and the
     kernels timed again as built with multiply-add contraction."""
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
@@ -174,17 +178,19 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
     # slots' 40 bytes, not the whole (K, T, 10) block, plus the counts and
     # io_bytes: the other inputs read once and the outputs written once
     marched = {thr: marched_slots(tp, counts, ntx, thr) for thr in (rc.T_EPS, 0.5)}
-    acc, trans, nt = rc.blend_forward(tp, counts, ntx)
+    acc, trans, nt, march = rc.blend_forward(tp, counts, ntx)
     report = {
         "blend_forward": dict(args=(tp, counts, ntx), plain=rc.blend_forward_plain,
                               wrapper=rc.blend_forward, threshold=rc.T_EPS, ops=OPS_FWD, tol=1e-5,
-                              io_bytes=(acc.numel() + trans.numel() + nt.numel()) * 4),
-        # the tolerance is 1e-5 of each field's largest gradient
-        "blend_backward": dict(args=(tp, counts, acc, trans, dacc, dtrans, ntx),
-                               plain=rc.blend_backward_plain, wrapper=rc.blend_backward,
-                               threshold=rc.T_EPS, ops=OPS_BWD, tol=1e-5,
-                               io_bytes=(acc.numel() + trans.numel() + dacc.numel()
-                                          + dtrans.numel() + K * T * rc.NF) * 4),
+                              io_bytes=(acc.numel() + trans.numel() + nt.numel() + T) * 4),
+        # the tolerance is 1e-5 of each field's largest gradient; B2 takes
+        # B1's march lengths, its plain version applies the stop rule
+        "blend_backward": dict(args=(tp, counts, march, acc, trans, dacc, dtrans, ntx),
+                               plain=lambda tp, counts, march, *rest: rc.blend_backward_plain(
+                                   tp, counts, *rest, march=march),
+                               wrapper=rc.blend_backward, threshold=rc.T_EPS, ops=OPS_BWD, tol=1e-5,
+                               io_bytes=(T + acc.numel() + trans.numel() + dacc.numel()
+                                         + dtrans.numel() + K * T * rc.NF) * 4),
         "median_depth": dict(args=(tp, counts, ntx), plain=rc.median_depth_plain,
                              wrapper=rc.median_depth, threshold=0.5, ops=OPS_MED, tol=1e-5,
                              io_bytes=2 * T * rc.P * 4),
@@ -199,6 +205,16 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
         r["max_abs_err"], err = errors(name, out, ref)
         ok = err <= r["tol"]
         what = "of each field's largest gradient" if name == "blend_backward" else "absolute"
+        if name == "blend_forward":
+            # touch counts and march lengths are integers: equal or wrong
+            same = {k: bool(torch.equal(out[i], ref[i])) for i, k in ((2, "counts"), (3, "march"))}
+            ok = ok and all(same.values())
+            what += f"; touch counts equal: {same['counts']}, march lengths equal: {same['march']}"
+        elif name == "blend_backward":
+            # its per-slot sums run in a fixed order: launched again, the same bits
+            repeats = bool(torch.equal(r["wrapper"](*args), out))
+            ok = ok and repeats
+            what += f"; launched twice, equal bits: {repeats}"
         print(f"kernel {name} [{label}]: max_abs_err {r['max_abs_err']:.3e}, error {err:.3e} against a "
               f"tolerance of {r['tol']:.0e} ({what}) {'ok' if ok else 'DISAGREES'}", flush=True)
         if not ok:
@@ -463,7 +479,7 @@ def check_packed_equals_dense(tp, counts, ntx: int) -> None:
     K = tp.shape[0]
     args, G = packed_from_dense(tp, counts, K, sort_by_depth=False, seed=0)
     acc_p, trans_p, _, _ = rc.packed_blend_forward(*args, G, ntx, with_nt=False)
-    acc_d, trans_d, _ = rc.blend_forward(tp, counts, ntx)
+    acc_d, trans_d, _, _ = rc.blend_forward(tp, counts, ntx)
     T = tp.shape[1]
     same = (torch.equal(rc._from_group_major(acc_p, G)[:T], acc_d)
             and torch.equal(rc._from_group_major(trans_p, G)[:T], trans_d))
@@ -471,24 +487,6 @@ def check_packed_equals_dense(tp, counts, ntx: int) -> None:
           f"{'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
     if not same:
         fail("B4 with a budget that does not bind differs from B1")
-
-
-def main_path_block(slam):
-    """The (K, T, 10) slot block and counts that the main path's last render
-    blends: the final map seen from the newest keyframe."""
-    import torch
-    from lvdgs_torch.ops import rasterizer as tr
-
-    p, active = slam.gmap.params(), slam.gmap.active
-    slot = slam.kf_slots[slam.kf_indices[-1]]
-    ntx, nty = slam.rcfg.grid(slam.intr)
-    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active,
-                                slam.kfbuf.R[slot], slam.kfbuf.T[slot], slam.intr)
-    tile_idx, slot_valid = tr._bin_for(proj, slam.rcfg, ntx, nty)
-    colors = torch.clamp(0.5 + tr.SH_C0 * p["features_dc"], 0.0, 1.0)
-    opac = torch.where(active, torch.sigmoid(p["logit_opacities"]), torch.zeros_like(p["logit_opacities"]))
-    tp = tr._tile_params(tile_idx, proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
-    return tp, slot_valid.sum(dim=1, dtype=torch.int32), ntx
 
 
 def check_gather_transpose(slam) -> None:
@@ -747,8 +745,8 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     return launches, slam
 
 
-def deterministic_street(device, frames: int, out: str, against: str | None) -> None:
-    """The float32 packed street run under
+def deterministic_street(device, frames: int, out: str, against: str | None, packed: bool) -> None:
+    """The float32 street run, packed or dense, under
     torch.use_deterministic_algorithms(True), where it repeats bit for bit:
     its final map and poses are written to `out` and, with `against` (a file
     that this mode wrote, from this checkout or another), compared with
@@ -757,7 +755,7 @@ def deterministic_street(device, frames: int, out: str, against: str | None) -> 
     import torch
 
     torch.use_deterministic_algorithms(True)
-    _launches, slam = run_slam(device, frames, packed=True, hold_limits=False)
+    _launches, slam = run_slam(device, frames, packed=packed, hold_limits=False)
     state = street_state(slam)
     torch.save(state, out)
     print(f"deterministic street run: {len(state)} final map and pose tensors written to {out}",
@@ -823,8 +821,14 @@ def main() -> None:
     parser.add_argument("--dense-frames", type=int, default=20,
                         help="street frames of the dense run (11 give only 1 keyframe after init)")
     parser.add_argument("--deterministic-street", metavar="FILE",
-                        help="run only the float32 packed street run, under deterministic algorithms, "
-                             "and write its final map and poses to FILE (no result line)")
+                        help="run only the float32 street run (packed, or with --dense dense), under "
+                             "deterministic algorithms, and write its final map and poses to FILE "
+                             "(no result line)")
+    parser.add_argument("--dense", action="store_true",
+                        help="with --deterministic-street: the dense street run (--dense-frames)")
+    parser.add_argument("--save-blocks", metavar="FILE",
+                        help="write the packed and dense runs' final-map slot blocks to FILE "
+                             "(for python -m lvdgs_torch.tools.packed_ab --blocks)")
     parser.add_argument("--against", metavar="FILE",
                         help="with --deterministic-street: compare bit for bit with a FILE it wrote")
     args = parser.parse_args()
@@ -851,7 +855,8 @@ def main() -> None:
           flush=True)
 
     if args.deterministic_street:
-        deterministic_street(device, args.frames, args.deterministic_street, args.against)
+        deterministic_street(device, args.dense_frames if args.dense else args.frames,
+                             args.deterministic_street, args.against, packed=not args.dense)
         return
 
     from concurrent.futures import ThreadPoolExecutor
@@ -877,7 +882,9 @@ def main() -> None:
             print(f"ptxas blend_packed.cu: {line.strip()}", flush=True)
 
     # phase 2
-    from lvdgs_torch.tools.blocks import main_path_packed_blocks, street_packed_blocks
+    from lvdgs_torch.tools.blocks import (
+        main_path_dense_block, main_path_packed_blocks, street_packed_blocks,
+    )
 
     (tp, counts), ntx, street_packed = street_packed_blocks(device)
     report = check_kernels(tp, counts, ntx, "random street-shaped slots")
@@ -902,12 +909,25 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
         if packed and not bf16:
             packed_slam = slam
+        elif not packed:
+            dense_slam = slam
         del slam
         torch.cuda.empty_cache()
-    # the same checks on the slots the packed path blends (printed only)
-    check_kernels(*main_path_block(packed_slam), "main-path slots")
+    # the same checks on the slots the packed and the dense path blend
+    dense_blocks = {"packed run": main_path_dense_block(packed_slam),
+                    "dense run": main_path_dense_block(dense_slam)}
+    del dense_slam
+    check_kernels(*dense_blocks["packed run"], "main-path slots")
+    check_kernels(*dense_blocks["dense run"], "dense-run main-path slots")
     check_gather_transpose(packed_slam)
     blocks, G, bntx = main_path_packed_blocks(packed_slam)
+    if args.save_blocks:
+        # the final maps' slot blocks, for tools/packed_ab.py --blocks
+        to_cpu = lambda xs: [x.cpu() if hasattr(x, "cpu") else x for x in xs]  # noqa: E731
+        torch.save({"dense": {k: to_cpu(v) for k, v in dense_blocks.items()},
+                    "packed": ([(name, to_cpu(a)) for name, a in blocks], G, bntx)}, args.save_blocks)
+        print(f"final-map slot blocks written to {args.save_blocks}", flush=True)
+    del dense_blocks
     for name, pargs in blocks:
         # on the map's slots, bf16 against float32 is held by the reference's
         # own measure (check_bf16_main_path), which bounds the image and the

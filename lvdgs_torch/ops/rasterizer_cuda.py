@@ -43,10 +43,10 @@ may multiply its transmittance by a few more slots than this rule does.
 Contributions are identical (a pixel at T <= T_EPS contributes nothing);
 the final transmittance of saturated pixels and the backward's
 ``-g_T * T_final / (1 - alpha)`` term through them differ by T_EPS-sized
-amounts. The packed forward also returns each tile's march length (the
-slots it marched under this rule); the packed backward kernel marches that
-many slots instead of testing the rule again, and its plain version tests
-the rule itself.
+amounts. The blend forwards (dense and packed) also return each tile's
+march length (the slots it marched under this rule); the backward kernels
+march that many slots instead of testing the rule again, and their plain
+versions test the rule themselves and refuse a march length that differs.
 """
 from __future__ import annotations
 
@@ -70,7 +70,6 @@ P = TILE * TILE
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1.0e-4
-MAX_K = 1024  # slots per tile the kernels' shared-memory counters hold
 KC = 32  # slots per chunk of the packed layout
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -171,8 +170,8 @@ def _load(fmad: bool) -> types.SimpleNamespace:
     libs = {name: ctypes.CDLL(str(path)) for name, path in build_libraries(fmad).items()}
     p, i = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        ("blend", "lvdgs_blend_fwd"): [p, p, p, p, p, i, i, i, p],
-        ("blend", "lvdgs_blend_bwd"): [p, p, p, p, p, p, p, i, i, i, p],
+        ("blend", "lvdgs_blend_fwd"): [p, p, p, p, p, p, i, i, i, p],
+        ("blend", "lvdgs_blend_bwd"): [p, p, p, p, p, p, p, p, i, i, i, p],
         ("blend", "lvdgs_median_depth"): [p, p, p, p, i, i, i, p],
         ("blend_packed", "lvdgs_packed_fwd"): [p, p, p, p, p, p, p, p, i, i, i, i, i, p],
         ("blend_packed", "lvdgs_packed_bwd"): [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
@@ -250,8 +249,6 @@ def _check_inputs(tp: torch.Tensor, counts: torch.Tensor, *others: torch.Tensor)
     K, T, _ = tp.shape
     if counts.shape != (T,) or counts.dtype != torch.int32:
         raise ValueError(f"counts must be ({T},) int32, got {tuple(counts.shape)} {counts.dtype}")
-    if K > MAX_K:
-        raise ValueError(f"at most {MAX_K} slots per tile, got {K}")
     for x in (tp, counts, *others):
         if x.device != tp.device:
             raise ValueError("all inputs must be on one device")
@@ -381,29 +378,38 @@ def blend_forward_plain(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     trans = torch.ones((T, P), dtype=torch.float32, device=tp.device)
     acc = torch.zeros((T, 4, P), dtype=torch.float32, device=tp.device)
     nt = torch.zeros((T, K), dtype=torch.int32, device=tp.device)
+    march = torch.zeros((T,), dtype=torch.int32, device=tp.device)
     alive = torch.ones((T,), dtype=torch.bool, device=tp.device)
     for k in range(K):
         alive = alive & (k < counts) & (trans > T_EPS).any(dim=1)
         if not bool(alive.any()):
             break
+        march += alive.to(torch.int32)
         w, trans, acc = _slot_forward(tp[k], px, py, alive, trans, acc)
         nt[:, k] = (w > 0.0).sum(dim=1).to(torch.int32)
-    return acc, trans, nt
+    return acc, trans, nt, march
 
 
-def blend_backward_plain(tp, counts, acc, trans_final, dacc, dtrans, ntx: int):
+def blend_backward_plain(tp, counts, acc, trans_final, dacc, dtrans, ntx: int, march=None):
+    """Marches by the stop rule itself; a given `march` (the forward's march
+    lengths, which the kernel marches instead) must equal what it marched,
+    else ValueError."""
     K, T, _ = tp.shape
     px, py = _pixel_coords(T, ntx, tp.device)
     dtp = torch.zeros((K, T, NF), dtype=torch.float32, device=tp.device)
     trans = torch.ones((T, P), dtype=torch.float32, device=tp.device)
     prefix = torch.zeros((T, 4, P), dtype=torch.float32, device=tp.device)
+    marched = torch.zeros((T,), dtype=torch.int32, device=tp.device)
     alive = torch.ones((T,), dtype=torch.bool, device=tp.device)
     for k in range(K):
         alive = alive & (k < counts) & (trans > T_EPS).any(dim=1)
         if not bool(alive.any()):
             break
+        marched += alive.to(torch.int32)
         dtp[k], trans, prefix = _slot_backward(tp[k], px, py, alive, trans, prefix, acc,
                                                trans_final, dacc, dtrans)
+    if march is not None and not torch.equal(march, marched):
+        raise ValueError("march is not the march lengths of the forward on these inputs")
     return dtp
 
 
@@ -542,7 +548,9 @@ def packed_blend_backward_plain(tp, cg, k0, goff, tids, acc, trans_final, dacc, 
 
 def blend_forward(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     """Front-to-back blend. Returns (acc (T, 4, P), trans (T, P),
-    n_touched per slot (T, K) int32)."""
+    n_touched per slot (T, K) int32, march (T,) int32). march is the number
+    of slots each tile marched under the stop rule; blend_backward takes it
+    and marches as many."""
     _check_inputs(tp, counts)
     if tp.device.type == "cpu":
         return blend_forward_plain(tp, counts, ntx)
@@ -550,28 +558,41 @@ def blend_forward(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
     acc = torch.empty((T, 4, P), dtype=torch.float32, device=tp.device)
     trans = torch.empty((T, P), dtype=torch.float32, device=tp.device)
     nt = torch.empty((T, K), dtype=torch.int32, device=tp.device)
+    march = torch.empty((T,), dtype=torch.int32, device=tp.device)
     if T == 0:
-        return acc, trans, nt
+        return acc, trans, nt, march
     err = _library().lvdgs_blend_fwd(
         tp.data_ptr(), counts.data_ptr(), acc.data_ptr(), trans.data_ptr(), nt.data_ptr(),
-        K, T, ntx, _stream(),
+        march.data_ptr(), K, T, ntx, _stream(),
     )
     _check_launch(err, "blend_forward")
     blend_forward.launches.add()
-    return acc, trans, nt
+    return acc, trans, nt, march
 
 
-def blend_backward(tp, counts, acc, trans, dacc, dtrans, ntx: int):
-    """VJP of blend_forward w.r.t. tp -> dtp (K, T, NF)."""
-    _check_inputs(tp, counts, acc, trans, dacc, dtrans)
-    if tp.device.type == "cpu":
-        return blend_backward_plain(tp, counts, acc, trans, dacc, dtrans, ntx)
+def blend_backward(tp, counts, march, acc, trans, dacc, dtrans, ntx: int):
+    """VJP of blend_forward w.r.t. tp -> dtp (K, T, NF), given the
+    forward's march lengths, acc and trans; slots the march never reaches get
+    zeros. `march` must be what blend_forward returned on these inputs: the
+    kernel marches that many slots per tile (never past the count) and
+    cannot check it; on the CPU the plain version checks it and raises
+    ValueError where it differs."""
+    _check_inputs(tp, counts, march, acc, trans, dacc, dtrans)
     K, T, _ = tp.shape
+    for name, x, shape, dtype in (("march", march, (T,), torch.int32),
+                                  ("acc", acc, (T, 4, P), torch.float32),
+                                  ("dacc", dacc, (T, 4, P), torch.float32),
+                                  ("trans", trans, (T, P), torch.float32),
+                                  ("dtrans", dtrans, (T, P), torch.float32)):
+        if x.shape != shape or x.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
+    if tp.device.type == "cpu":
+        return blend_backward_plain(tp, counts, acc, trans, dacc, dtrans, ntx, march=march)
     dtp = torch.empty((K, T, NF), dtype=torch.float32, device=tp.device)
     if T == 0:
         return dtp
     err = _library().lvdgs_blend_bwd(
-        tp.data_ptr(), counts.data_ptr(), acc.data_ptr(), trans.data_ptr(),
+        tp.data_ptr(), counts.data_ptr(), march.data_ptr(), acc.data_ptr(), trans.data_ptr(),
         dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(), K, T, ntx, _stream(),
     )
     _check_launch(err, "blend_backward")
@@ -716,22 +737,23 @@ KERNEL_WRAPPERS = (blend_forward, blend_backward, median_depth, packed_blend_for
 
 class BlendFunction(torch.autograd.Function):
     """blend_forward with blend_backward as its VJP (no gradient to counts
-    or to the per-slot touch counts)."""
+    or to the per-slot touch counts). The forward's march lengths are saved
+    for the backward, which marches as many slots per tile."""
 
     @staticmethod
     def forward(ctx, tp, counts, ntx):
-        acc, trans, nt = blend_forward(tp, counts, ntx)
-        ctx.save_for_backward(tp, counts, acc, trans)
+        acc, trans, nt, march = blend_forward(tp, counts, ntx)
+        ctx.save_for_backward(tp, counts, march, acc, trans)
         ctx.ntx = ntx
         ctx.mark_non_differentiable(nt)
         return acc, trans, nt
 
     @staticmethod
     def backward(ctx, dacc, dtrans, _dnt):
-        tp, counts, acc, trans = ctx.saved_tensors
+        tp, counts, march, acc, trans = ctx.saved_tensors
         dacc = torch.zeros_like(acc) if dacc is None else dacc.contiguous()
         dtrans = torch.zeros_like(trans) if dtrans is None else dtrans.contiguous()
-        dtp = blend_backward(tp, counts, acc, trans, dacc, dtrans, ctx.ntx)
+        dtp = blend_backward(tp, counts, march, acc, trans, dacc, dtrans, ctx.ntx)
         return dtp, None, None
 
 

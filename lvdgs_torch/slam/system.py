@@ -20,7 +20,8 @@ Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
 ROADMAP item: the active-prefix binning bucket (C4), pyramid tracking (A6),
 global BA and checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors
-(A12), the GUI (A14) and data-parallel mapping (A15).
+(A12), the GUI and the visualisation panels (A14) and data-parallel
+mapping (A15).
 """
 from __future__ import annotations
 
@@ -72,6 +73,11 @@ def _refuse_unported(config: dict) -> None:
         (tr.get("track_pyramid", False), "pyramid tracking (ROADMAP A6)"),
         (res.get("global_BA", False), "global bundle adjustment (ROADMAP A7)"),
         (res.get("use_gui", False), "the GUI feed (ROADMAP A14)"),
+        (res.get("save_depth_comparison", False),
+         "the depth-comparison panels, Results.save_depth_comparison (ROADMAP A14)"),
+        # only an explicit non-zero value: the reference's default of 1
+        # writes best-effort panels that the port does not write yet
+        (res.get("viz_every", 0), "the eval visualisation panels, Results.viz_every (ROADMAP A14)"),
         ((config.get("dynamic_filtering", {}) or {}).get("enabled", False),
          "dynamic filtering (ROADMAP A11)"),
         ((config.get("mast3r", {}) or {}).get("checkpoint"), "MASt3R priors (ROADMAP A12)"),
@@ -130,6 +136,11 @@ class SLAM:
         self.synced_timers = bool(int(os.environ.get("LVDGS_SYNCED_TIMERS", "0"))) or perf.get(
             "synced_timers", False
         )
+        # LVDGS_NAN_SCAN=1: after every SLAM phase, count the non-finite rows
+        # of each map parameter (active and inactive apart) and of the
+        # phase's output, and log the phase that shows them. One host
+        # transfer per phase: for debugging only.
+        self._nan_scan_on = os.environ.get("LVDGS_NAN_SCAN", "") == "1"
         # the map starts small and grows by powers of two toward
         # map_capacity as it fills
         self.max_capacity = perf.get("map_capacity", 2**17)
@@ -576,6 +587,7 @@ class SLAM:
         )
         res = self._run_mapping([self.kf_slots[idx]], self.init_itr_num, self.mcfg_init)
         self.occ_visibility[idx] = res.occ_visibility[0]
+        self._nan_scan(f"backend_init[{idx}]", depth)
         Log(f"Initialized map ({self.gmap.num_active} gaussians)")
 
     def _backend_keyframe(self, idx: int, depth) -> None:
@@ -589,6 +601,7 @@ class SLAM:
             opt_state=self.opt_state,
         )
         self._phase_sync()
+        self._nan_scan(f"kf_seed[{idx}]", depth)
         self.timer.toc("kf_seed")
         mcfg = self.mcfg
         if not self.initialized:
@@ -608,6 +621,7 @@ class SLAM:
         self.timer.tic("kf_mapping")
         res = self._run_mapping(window_slots, iter_per_kf, mcfg)
         self._phase_sync()
+        self._nan_scan(f"kf_mapping[{idx}]")
         self.timer.toc("kf_mapping")
 
         self.timer.tic("kf_prune")
@@ -617,6 +631,7 @@ class SLAM:
         self._sync_backend()
         self._maybe_shrink()
         self._phase_sync()
+        self._nan_scan(f"kf_prune[{idx}]")
         self.timer.toc("kf_prune")
 
     def _prune(self, window_slots, mapping_res):
@@ -629,6 +644,29 @@ class SLAM:
             self.gmap, self.kfbuf, window_slots, mapping_res.occ_visibility, self.initialized,
             prune_num=self.prune_num, window_size=self.window_size,
         )
+
+    def _nan_scan(self, where: str, extra=None) -> None:
+        """With LVDGS_NAN_SCAN=1, log which map parameters hold NaN or Inf
+        (rows counted apart for active and inactive Gaussians) and how many
+        non-finite values the phase output `extra` holds, tagged with the
+        phase: the first tag logged names the phase that brought them in."""
+        if not self._nan_scan_on:
+            return
+        msgs = []
+        act = self.gmap.active
+        for k, v in self.gmap.params().items():
+            bad = ~torch.isfinite(v)
+            if bad.dim() > 1:
+                bad = bad.any(dim=1)
+            na, ni = int(bad[act].sum()), int(bad[~act].sum())
+            if na or ni:
+                msgs.append(f"{k}(act={na},inact={ni})")
+        if extra is not None:
+            nb = int((~torch.isfinite(torch.as_tensor(extra))).sum())
+            if nb:
+                msgs.append(f"phase_out({nb})")
+        if msgs:
+            Log(f"NANSCAN[{where}]: " + " ".join(msgs), tag="Debug")
 
     def _window_slots(self) -> List[int]:
         slots = [self.kf_slots[k] for k in self.current_window]
@@ -750,6 +788,8 @@ class SLAM:
         self.timer.tic("tracking")
         cam, res = self._track(idx, cam)
         self.timer.toc("tracking")
+        if self._nan_scan_on:
+            self._nan_scan(f"track[{idx}]", torch.cat([cam.R.reshape(-1), cam.T.reshape(-1)]))
 
         last_kf_idx = self.current_window[0]
         check_time = (idx - last_kf_idx) >= self.kf_interval
@@ -788,12 +828,28 @@ class SLAM:
                 self._sync_backend()
                 self.last_sent = 0
                 self._phase_sync()
+                self._nan_scan(f"idle_mapping[{idx}]")
             self.timer.toc("idle_mapping")
         self.frames_processed += 1
 
         if self.save_results and self.save_trj and create_kf and \
                 len(self.kf_indices) % self.save_trj_kf_intv == 0:
             eval_ate(self.frames, self.kf_indices, self.save_dir, idx, monocular=self.monocular)
+
+    def _start_profiler(self, profile_dir: str):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts,
+                                      on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, profile_dir: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        Log(f"profiler trace written to {profile_dir}")
 
     def color_refinement(self, iters: Optional[int] = None,
                          features_only: Optional[bool] = None) -> None:
@@ -806,20 +862,45 @@ class SLAM:
             intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
             features_only=bool(features_only),
         )
+        self._nan_scan(f"color_refine[{iters}]")
         Log("Map refinement done")
 
     def run(self, n_frames: Optional[int] = None, progress: bool = True) -> dict:
         n = len(self.dataset) if n_frames is None else min(n_frames, len(self.dataset))
         start = self.frames_processed
         loader = PrefetchLoader(self.dataset, depth=4, start=start, end=n)
+        # optional torch.profiler trace of the loop from frame start +
+        # profile_after for profile_frames more frames, written into
+        # profile_dir (TensorBoard's and Chrome's trace format)
+        res = self.config.get("Results", {})
+        profile_dir = res.get("profile_dir")
+        profile_after = int(res.get("profile_after", 5))
+        profile_frames = int(res.get("profile_frames", 10))
+        profiler = None
+        # the reference's pacing: sleep so that keyframes arrive at no more
+        # than pace_kf_hz; 0 disables it
+        pace_hz = float(self.config.get("Training", {}).get("pace_kf_hz", 0.0))
         t0 = time.perf_counter()
         try:
             for idx, sample in loader:
+                f_start = time.perf_counter()
+                kfs_before = len(self.kf_indices)
+                if profile_dir and profiler is None and idx - start == profile_after:
+                    profiler = self._start_profiler(profile_dir)
                 self.process_frame(idx, sample)
+                if profiler is not None and idx - start >= profile_after + profile_frames:
+                    self._stop_profiler(profiler, profile_dir)
+                    profiler = None
+                if pace_hz > 0 and len(self.kf_indices) > kfs_before:
+                    budget = 1.0 / pace_hz - (time.perf_counter() - f_start)
+                    if budget > 0.01:
+                        time.sleep(budget)
                 if progress and idx % 25 == 0:
                     Log(f"frame {idx}/{n} kfs={len(self.kf_indices)} gaussians={self.gmap.num_active}")
         finally:
             loader.close()
+            if profiler is not None:
+                self._stop_profiler(profiler, profile_dir)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

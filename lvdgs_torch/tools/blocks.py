@@ -1,8 +1,8 @@
 """Slot blocks at the street scene's shapes, for holding the blend kernels
 against their plain versions and against other builds on the card: random
 depth-sorted slot lists shaped like the street scene's, packed as tracking,
-mapping and the saturation probe pack them, and the packed blocks that a
-SLAM run's final map gives."""
+mapping and the saturation probe pack them, and the dense and packed blocks
+that a SLAM run's final map gives."""
 from __future__ import annotations
 
 import torch
@@ -98,3 +98,20 @@ def main_path_packed_blocks(slam):
                       slot_budget_per_tile=slam.rcfg.max_per_tile)
     blocks.append(("probe", [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids]))
     return blocks, G, ntx
+
+
+def main_path_dense_block(slam):
+    """The (K, T, 10) slot block and counts that a run's exact render of its
+    final map from the newest keyframe blends (dense, max_per_tile slots).
+    Returns (tp, counts, ntx)."""
+    from ..ops import rasterizer as tr
+
+    p, active = slam.gmap.params(), slam.gmap.active
+    slot = slam.kf_slots[slam.kf_indices[-1]]
+    ntx, nty = slam.rcfg.grid(slam.intr)
+    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active,
+                                slam.kfbuf.R[slot], slam.kfbuf.T[slot], slam.intr)
+    tile_idx, slot_valid = tr._bin_for(proj, slam.rcfg, ntx, nty)
+    colors, opac = tr._blend_inputs(p, active)
+    tp = tr._tile_params(tile_idx, proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
+    return tp, slot_valid.sum(dim=1, dtype=torch.int32), ntx

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a tracking call and a mapping run of lvdgs_torch spend their time.
 
-    python3 profile_torch.py [--frames 6] [--device cuda]
+    python3 profile_torch.py [--frames 6] [--device cuda] [--dense-only]
 
 Runs the street scene (configs/mono/synthetic/street.yaml at 1226x370, as
 configured: packed tracking at 96 and mapping at 128 slots per tile with
@@ -12,7 +12,10 @@ the next frame, packed (period-linearised) and dense, and one 20-iteration
 for each: wall time, device-busy share (kernel time over wall time), the
 number of device kernel launches, the number of host-device
 synchronisations (CUDA sync debug mode), the blend kernels' launch counts,
-and the operators and kernels that take the most device and host time.
+each blend kernel's device time and share of the device time, and the
+operators and kernels that take the most device and host time.
+--dense-only profiles only the dense calls. The script drives the package
+beside it, so a copy of it in another checkout profiles that checkout.
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the blend kernels' names in the trace (csrc/blend.cu, csrc/blend_packed.cu)
+BLEND_KERNELS = ("blend_fwd_kernel", "blend_bwd_kernel", "median_depth_kernel", "packed_fwd_kernel",
+                 "packed_bwd_kernel")
 
 
 def build_slam(frames: int, device):
@@ -70,6 +76,12 @@ def profile(label: str, fn, device, top: int = 12) -> None:
     print(f"\n== {label}: wall {wall * 1e3:.1f} ms, kernels {kernel_us / 1e3:.1f} ms "
           f"(device busy {100 * kernel_us / 1e3 / (wall * 1e3):.1f}%), {n_dev} device kernel launches, "
           f"{len(syncs)} host-device synchronisations, blend kernel launches {launches}", flush=True)
+    for kernel in BLEND_KERNELS:
+        evs = [e for e in dev_events if kernel in e.key]
+        if evs:
+            us, n = sum(e.self_device_time_total for e in evs), sum(e.count for e in evs)
+            print(f"   {kernel}: {us / 1e3:.3f} ms of device time ({100 * us / max(kernel_us, 1e-9):.1f}%), "
+                  f"{n} launches, {us / n:.1f} us each", flush=True)
     where = {}
     for w in syncs:
         key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
@@ -87,6 +99,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=6, help="street frames run before profiling")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dense-only", action="store_true", help="profile only the dense calls")
     args = parser.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -119,11 +132,14 @@ def main() -> None:
                     slam.iteration_count, 20, intr=slam.intr, rcfg=rcfg, opt=slam.opt,
                     mcfg=slam.mcfg)
 
-    for label, rcfg in ((f"packed {slam.rcfg_track.slot_budget_per_tile}", slam.rcfg_track),
-                        ("dense", slam.rcfg)):
+    tracks = [("dense", slam.rcfg)]
+    maps = [("dense", slam.rcfg)]
+    if not args.dense_only:
+        tracks.insert(0, (f"packed {slam.rcfg_track.slot_budget_per_tile}", slam.rcfg_track))
+        maps.insert(0, (f"packed {slam.rcfg_map.slot_budget_per_tile}", slam.rcfg_map))
+    for label, rcfg in tracks:
         profile(f"track_camera, {label} (frame {idx})", lambda: track(rcfg), device)
-    for label, rcfg in ((f"packed {slam.rcfg_map.slot_budget_per_tile}", slam.rcfg_map),
-                        ("dense", slam.rcfg)):
+    for label, rcfg in maps:
         profile(f"mapping_run, {label} (20 iterations, window of {len(slam.current_window)})",
                 lambda: mapping(rcfg), device)
 

@@ -63,17 +63,20 @@ def _rel_close(a, b, tol):
 @pytest.mark.parametrize("K,T", [(64, 24), (256, 160)])
 def test_kernels_match_plain(cuda_device, K, T):
     tp, counts, ntx = _random_block(K, T, K + T, cuda_device)
-    acc, trans, nt = rc.blend_forward(tp, counts, ntx)
-    acc_p, trans_p, nt_p = rc.blend_forward_plain(tp, counts, ntx)
+    acc, trans, nt, march = rc.blend_forward(tp, counts, ntx)
+    acc_p, trans_p, nt_p, march_p = rc.blend_forward_plain(tp, counts, ntx)
     torch.testing.assert_close(acc, acc_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(trans, trans_p, atol=1e-5, rtol=0)
     assert torch.equal(nt, nt_p)
+    assert torch.equal(march, march_p)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
     dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
-    dtp = rc.blend_backward(tp, counts, acc, trans, dacc, dtrans, ntx)
+    dtp = rc.blend_backward(tp, counts, march, acc, trans, dacc, dtrans, ntx)
     dtp_p = rc.blend_backward_plain(tp, counts, acc, trans, dacc, dtrans, ntx)
     _rel_close(dtp, dtp_p, 1e-5)
+    # its per-slot sums run in a fixed order: launched again, the same bits
+    assert torch.equal(rc.blend_backward(tp, counts, march, acc, trans, dacc, dtrans, ntx), dtp)
     dmed, opac = rc.median_depth(tp, counts, ntx)
     dmed_p, opac_p = rc.median_depth_plain(tp, counts, ntx)
     torch.testing.assert_close(dmed, dmed_p, atol=1e-5, rtol=0)
@@ -168,7 +171,7 @@ def test_packed_forward_equals_dense_on_card(cuda_device):
     tp, counts, _ = _random_block(K, T, 9, cuda_device, ntx)
     args, G = _packed_block(T, ntx, K, K, 9, cuda_device, sort_by_depth=False)
     acc_p, trans_p, _, _ = rc.packed_blend_forward(*args, G, ntx)
-    acc_d, trans_d, _ = rc.blend_forward(tp, counts, ntx)
+    acc_d, trans_d, _, _ = rc.blend_forward(tp, counts, ntx)
     assert torch.equal(rc._from_group_major(acc_p, G), acc_d)
     assert torch.equal(rc._from_group_major(trans_p, G), trans_d)
 
@@ -213,8 +216,8 @@ def test_rasterize_on_card_matches_cpu(cuda_device):
 def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
     tp, counts, ntx = _random_block(32, 8, 3, cuda_device)
     before = [w.launches.count for w in rc.KERNEL_WRAPPERS]
-    acc, trans, _ = rc.blend_forward(tp, counts, ntx)
-    rc.blend_backward(tp, counts, acc, trans, torch.ones_like(acc), torch.ones_like(trans), ntx)
+    acc, trans, _, march = rc.blend_forward(tp, counts, ntx)
+    rc.blend_backward(tp, counts, march, acc, trans, torch.ones_like(acc), torch.ones_like(trans), ntx)
     rc.median_depth(tp, counts, ntx)
     args, G = _packed_block(24, 8, 64, 64, 3, cuda_device)
     acc, trans, _, march = rc.packed_blend_forward(*args, G, 8)
@@ -244,14 +247,17 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(cuda_device):
         rc.blend_forward(tp.double(), counts, ntx)
     with pytest.raises(ValueError):
         rc.blend_forward(tp, counts.cpu(), ntx)
+    ones = (torch.ones_like(acc), torch.ones_like(trans))
+    for bad in (march.long(), march[:-1], march.cpu()):
+        with pytest.raises(ValueError, match="march|device"):
+            rc.blend_backward(tp, counts, bad, acc, trans, *ones, ntx)
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
     tp, counts, ntx = _random_block(16, 8, 4, "cpu")
     before = [w.launches.count for w in rc.KERNEL_WRAPPERS]
-    acc, trans, nt = rc.blend_forward(tp, counts, ntx)
-    acc_p, trans_p, nt_p = rc.blend_forward_plain(tp, counts, ntx)
-    assert torch.equal(acc, acc_p) and torch.equal(trans, trans_p) and torch.equal(nt, nt_p)
+    out = rc.blend_forward(tp, counts, ntx)
+    assert all(torch.equal(o, p) for o, p in zip(out, rc.blend_forward_plain(tp, counts, ntx)))
     rc.median_depth(tp, counts, ntx)
     args, G = _packed_block(24, 8, 64, 64, 4, "cpu")
     out = rc.packed_blend_forward(*args, G, 8)

@@ -231,7 +231,7 @@ def test_packed_forward_equals_dense_when_budget_does_not_bind():
                                                       pb.k0, torch.zeros(1, dtype=torch.int32),
                                                       pb.tids, 3, NTX)
     tp = tr._gather_rows(fields, tile_idx_t.clamp(max=120).T)
-    acc_d, trans_d, nt_d = rc.blend_forward(tp, slot_valid_t.sum(1, dtype=torch.int32), NTX)
+    acc_d, trans_d, nt_d, _ = rc.blend_forward(tp, slot_valid_t.sum(1, dtype=torch.int32), NTX)
     assert torch.equal(rc._from_group_major(acc_p, 3), acc_d)
     assert torch.equal(rc._from_group_major(trans_p, 3), trans_d)
     assert int(nt_p.sum()) == int(nt_d.sum()) > 0

@@ -71,7 +71,8 @@ def block():
 def test_plain_blend_forward_matches_pallas(block):
     tp, counts = block
     acc_j, trans_j, nt_j = pallas_blend(tp, counts, NTX, NTY, 16, 4, True)
-    acc, trans, nt = rc.blend_forward(torch.tensor(np.asarray(tp)), torch.tensor(np.asarray(counts)), NTX)
+    acc, trans, nt, _march = rc.blend_forward(torch.tensor(np.asarray(tp)), torch.tensor(np.asarray(counts)),
+                                              NTX)
     np.testing.assert_allclose(to_np(acc)[:, :3], np.asarray(acc_j)[:, :3], atol=3e-4)
     np.testing.assert_allclose(to_np(acc)[:, 3], np.asarray(acc_j)[:, 3], atol=3e-3)
     np.testing.assert_allclose(to_np(trans), np.asarray(trans_j), atol=3e-4)
@@ -89,8 +90,8 @@ def test_plain_blend_backward_matches_pallas_vjp(block):
     )
     (dtp_j,) = vjp((jnp.asarray(dacc), jnp.asarray(dtrans), jnp.zeros_like(nt_j)))
     tpt, ct = torch.tensor(np.asarray(tp)), torch.tensor(np.asarray(counts))
-    acc, trans, _ = rc.blend_forward(tpt, ct, NTX)
-    dtp = rc.blend_backward(tpt, ct, acc, trans, torch.tensor(dacc), torch.tensor(dtrans), NTX)
+    acc, trans, _, march = rc.blend_forward(tpt, ct, NTX)
+    dtp = rc.blend_backward(tpt, ct, march, acc, trans, torch.tensor(dacc), torch.tensor(dtrans), NTX)
     for f in range(rc.NF):
         normalized_close(np.asarray(dtp_j)[..., f], dtp[..., f], 2e-3)
 

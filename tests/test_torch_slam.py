@@ -38,6 +38,7 @@ from lvdgs_torch.ops import rasterizer as tr
 from lvdgs_torch.slam import depth_alignment as tda
 from lvdgs_torch.slam import keyframe as tkf
 from lvdgs_torch.slam import mapping as tmp
+from lvdgs_torch.slam import system as tsys
 from lvdgs_torch.slam import tracking as ttk
 from lvdgs_torch.slam.system import SLAM
 from torch_parity import assert_map_matches, camera_pair, leaves_np, map_to_torch, to_np
@@ -464,12 +465,18 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
             ("Training", "track_pyramid", True, "A6"),
             ("Results", "global_BA", True, "A7"),
             ("dynamic_filtering", "enabled", True, "A11"),
-            ("mast3r", "checkpoint", "weights.pth", "A12")]
+            ("mast3r", "checkpoint", "weights.pth", "A12"),
+            ("Results", "save_depth_comparison", True, "A14"),
+            ("Results", "viz_every", 1, "A14")]
     for section, key, value, item in asks:
         c = copy.deepcopy(cfg)
         c.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match=item):
             SLAM(c, device="cpu")
+    # an explicit viz_every of 0 asks for no panels
+    c = copy.deepcopy(cfg)
+    c["Results"]["viz_every"] = 0
+    SLAM(c, device="cpu")
     # the bf16 packed blend is carried: it reaches the two optimiser-facing
     # render configs (packed here), not the exact renders' config
     c = copy.deepcopy(cfg)
@@ -479,3 +486,59 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     assert slam.rcfg_track.blend_bf16 and slam.rcfg_map.blend_bf16
     assert slam.rcfg_track.use_packed and slam.rcfg_map.use_packed
     assert not slam.rcfg.blend_bf16 and not slam.rcfg.use_packed
+
+
+def test_nan_scan_logs_a_planted_nan_with_its_phase(monkeypatch):
+    """LVDGS_NAN_SCAN=1 (the reference's _nan_scan): after each phase, the
+    map parameters' non-finite rows, active and inactive apart, and the
+    phase output's non-finite values are logged with the phase's name."""
+    logs = []
+    monkeypatch.setattr(tsys, "Log", lambda *a, **kw: logs.append((" ".join(map(str, a)), kw.get("tag"))))
+    monkeypatch.setenv("LVDGS_NAN_SCAN", "1")
+    slam = SLAM(_small_slam_config(3), save_dir=None, device="cpu")
+    slam.process_frame(0)
+    assert not [m for m, _ in logs if "NANSCAN" in m]  # a healthy map logs nothing
+    # a NaN in an inactive row (not rendered): tracking runs on, and the scan
+    # after it names the row's parameter and the phase
+    inactive = int(torch.nonzero(~slam.gmap.active)[0])
+    slam.gmap.log_scales[inactive, 1] = float("nan")
+    slam.process_frame(1)
+    scans = [(m, tag) for m, tag in logs if "NANSCAN" in m]
+    assert scans[0] == ("NANSCAN[track[1]]: log_scales(act=0,inact=1)", "Debug")
+    slam._nan_scan("probe", torch.tensor([float("inf"), 1.0, float("nan")]))
+    assert logs[-1][0] == "NANSCAN[probe]: log_scales(act=0,inact=1) phase_out(2)"
+    monkeypatch.delenv("LVDGS_NAN_SCAN")
+    quiet = SLAM(_small_slam_config(3), save_dir=None, device="cpu")
+    quiet.gmap.log_scales[0, 0] = float("nan")
+    n = len(logs)
+    quiet._nan_scan("probe")
+    assert len(logs) == n  # off unless asked for
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """Results.profile_dir: a torch.profiler trace of the loop from frame
+    profile_after; the 3-frame run ends before profile_frames more frames,
+    so the trace is stopped and written when the loop ends."""
+    cfg = _small_slam_config(3)
+    cfg["Results"].update({"profile_dir": str(tmp_path), "profile_after": 1, "profile_frames": 10,
+                           "color_refinement": False, "eval_rendering": False})
+    slam = SLAM(cfg, save_dir=None, device="cpu")
+    slam.run(progress=False)
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    trace = traces[0].read_text()
+    assert '"traceEvents"' in trace and "aten::" in trace
+
+
+def test_pace_kf_hz_sleeps_after_keyframes(monkeypatch):
+    """Training.pace_kf_hz: after a frame that made a keyframe, sleep what is
+    left of 1 / pace_kf_hz; never after other frames."""
+    sleeps = []
+    monkeypatch.setattr(tsys.time, "sleep", sleeps.append)
+    cfg = _small_slam_config(3)
+    cfg["Training"]["pace_kf_hz"] = 0.001  # one keyframe per 1000 s
+    cfg["Results"].update({"color_refinement": False, "eval_rendering": False})
+    slam = SLAM(cfg, save_dir=None, device="cpu")
+    slam.run(progress=False)
+    assert len(sleeps) == len(slam.kf_indices) >= 1
+    assert all(900.0 < s < 1000.0 for s in sleeps)
