@@ -60,8 +60,14 @@
 //   skip_below at every pixel, so alpha is 0 there) skips the slot before
 //   the exp; exact, since alpha 0 changes nothing, and a skipped slot's
 //   gradient partial is +0.
-// The median keeps the first design: slots staged 32 at a time behind a
-// barrier, a tile-wide __syncthreads_count vote before every slot.
+// - Median: the forward's per-warp march, staging (three buffers) and
+//   replay at the threshold 0.5, with no sums or counts: a pixel takes the
+//   depth of the slot that brings its transmittance from above 0.5 to 0.5
+//   or below, and a warp that stopped before the tile replays up to the
+//   tile's stop (its pixels are all at 0.5 or below there, so none crosses
+//   and dmed stays). Without the warp skip: at ~20 operations per pixel and
+//   slot, the skip's shuffle, vote and branch before every slot cost more
+//   than the exps it saves (PERF.md).
 //
 // What bounds them on the H100: per pixel and marched slot ~27 (forward),
 // ~96 (backward) and ~20 (median) FP32 operations and one expf, against 40
@@ -78,7 +84,12 @@
 // 0.54x; on a dense street run's tracking call the backward took 0.60 ms a
 // launch against 1.42). Neither more blocks per SM (launch bounds), vector
 // loads of 16-byte slot rows, nor an in-kernel heaviest-tile-first order
-// paid on the street run's own slots (PERF.md).
+// paid on the street run's own slots (PERF.md). The median marches few
+// slots (~9 a tile on the random block, ~27 on a street run's final map),
+// so per-block costs weigh more: the first design, a tile-wide vote and a
+// barrier before every slot, took 0.0164 ms on the random block and 0.0513
+// on the packed street run's final map; this one 0.0156 and 0.0373 (0.95x,
+// 0.73x; with the warp skip 0.0178 and 0.0487), same bits, same card.
 
 #include "blend_common.cuh"
 #include "kernel_attrs.cuh"
@@ -86,15 +97,6 @@
 namespace {
 
 using namespace lvdgs;
-
-// Stage slots [k0, k0 + n) of tile t into shared memory (all threads).
-__device__ __forceinline__ void stage(float* sp, const float* __restrict__ tp, int k0, int n,
-                                      int T, int t) {
-  for (int i = threadIdx.x; i < n * NF; i += NPIX) {
-    const int s = i / NF;
-    sp[i] = tp[((size_t)(k0 + s) * T + t) * NF + (i - s * NF)];
-  }
-}
 
 // Start copying slots [k0, k0 + n) of tile t into sp with cp.async; each
 // thread copies its own words, which the block sees after cp_async_wait_all
@@ -302,27 +304,53 @@ __global__ void __launch_bounds__(NPIX)
 median_depth_kernel(const float* __restrict__ tp, const int* __restrict__ counts,
                     float* __restrict__ dmed_out, float* __restrict__ opac_out,
                     int K, int T, int ntx) {
-  __shared__ float sp[KC * NF];
+  __shared__ float sp[3][KC * NF];
+  __shared__ int stop_sh[2][NWARP];
   const int t = blockIdx.x;
   const int lin = threadIdx.x;
+  const int wl = lin & 31;
   const float px = (float)((t % ntx) * TS + (lin % TS));
   const float py = (float)((t / ntx) * TS + (lin / TS));
-  const int count = min(counts[t], K);
+  const int count = max(min(counts[t], K), 0);
+  const int nch = (count + KC - 1) / KC;  // chunks of the slot list
+  if (nch > 0) {
+    stage_async(sp[0], tp, 0, min(KC, count), T, t);
+    cp_async_wait_all();
+  }
+  __syncthreads();
 
   float trans = 1.0f, dmed = 0.0f;
-  for (int k = 0; k < count; ++k) {
-    const int j = k % KC;
-    if (j == 0) {
-      __syncthreads();
-      stage(sp, tp, k, min(KC, count - k), T, t);
+  for (int c = 0; c < nch; ++c) {
+    const int n = min(KC, count - c * KC);  // slots of this chunk
+    const float* s = sp[c % 3];
+    if (c + 1 < nch) {
+      stage_async(sp[(c + 1) % 3], tp, (c + 1) * KC, min(KC, count - (c + 1) * KC), T, t);
     }
-    // march only until every pixel's accumulated opacity crossed 0.5
-    if (__syncthreads_count(trans > 0.5f) == 0) break;
-    const float* p = sp + j * NF;
-    const SlotEval e = eval_slot(p, px, py);
-    const float t_new = trans * (1.0f - e.alpha);
-    if (trans > 0.5f && t_new <= 0.5f) dmed = p[8];
-    trans = t_new;
+    // this warp's march: it stops before the first slot at which none of
+    // its pixels' transmittance is above 0.5
+    int stop = n;
+    for (int kc = 0; kc < n; ++kc) {
+      if (!__any_sync(FULL, trans > 0.5f)) {
+        stop = kc;
+        break;
+      }
+      const float* p = s + kc * NF;
+      const float t_new = trans * (1.0f - eval_slot(p, px, py).alpha);
+      // exactly one slot per pixel takes accumulated opacity past 0.5
+      if (trans > 0.5f && t_new <= 0.5f) dmed = p[8];
+      trans = t_new;
+    }
+    if (wl == 0) stop_sh[c & 1][lin >> 5] = stop;
+    cp_async_wait_all();
+    __syncthreads();  // the warps' stops, and the next chunk's slots
+    int tile_stop = 0;
+#pragma unroll
+    for (int w8 = 0; w8 < NWARP; ++w8) tile_stop = max(tile_stop, stop_sh[c & 1][w8]);
+    // a warp that stopped before the tile goes on multiplying its
+    // transmittance up to the tile's stop; its pixels are all at 0.5 or
+    // below, so none crosses there and dmed stays
+    for (int kc = stop; kc < tile_stop; ++kc) trans *= (1.0f - eval_slot(s + kc * NF, px, py).alpha);
+    if (tile_stop < n) break;
   }
   dmed_out[(size_t)t * NPIX + lin] = dmed;
   opac_out[(size_t)t * NPIX + lin] = 1.0f - trans;

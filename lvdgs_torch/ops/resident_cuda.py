@@ -92,6 +92,8 @@ def resident_gather(idx: torch.Tensor, fields: torch.Tensor, check_rows: bool = 
         return resident_gather_plain(idx, fields)
     G, K, TG = idx.shape
     out = torch.empty((G * TG, NF), dtype=torch.float32, device=idx.device)
+    if G == 0:
+        return out
     err = _library().lvdgs_resident_gather(idx.data_ptr(), fields.data_ptr(), out.data_ptr(), G, K,
                                            TG, fields.shape[0], _stream())
     _check_launch(err, "resident_gather")

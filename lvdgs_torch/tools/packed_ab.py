@@ -1,11 +1,13 @@
-"""Builds of the blend kernels (the packed B4, B5 and their bf16 variants, and
-the dense B1 and B2) held against each other on one card.
+"""Builds of the blend kernels (the packed B4, B5 and their bf16 variants, the
+dense B1 and B2, the median B3) and of the resident-table kernels (R1, R2)
+held against each other on one card.
 
     python -m lvdgs_torch.tools.packed_ab --source NAME=DIR [--source NAME=DIR ...]
         [--blocks FILE] [--out FILE]
 
-Each DIR holds a ``blend_packed.cu`` and a ``blend.cu`` with the headers they
-include: this tree's ``lvdgs_torch/csrc``, a parent commit's unpacked with
+Each DIR holds a ``blend_packed.cu``, a ``blend.cu`` and a ``resident.cu``
+with the headers they include: this tree's ``lvdgs_torch/csrc``, a parent
+commit's unpacked with
 ``git archive``, or a copy with one change to measure. Each source is built
 with the shipped flags into its own library (every nvcc at once); nvcc's
 ``-Xptxas -v`` lines are printed with each kernel's registers, local
@@ -18,16 +20,18 @@ Packed: on each block (the random street-shaped block packed at NB 348, 464
 and 928, ``lvdgs_torch.tools.blocks``) every kernel of every build runs on
 the same inputs: B4 with touch counts, without and as the probe, B4-bf16
 with and without counts, B5 and B5-bf16 on the first build's forward
-outputs and one random cotangent. Dense: B1 and B2 on the random
+outputs and one random cotangent. Dense: B1, B2 and B3 on the random
 street-shaped block (K 256, T 1848), B2 on the first build's forward
 outputs and one random cotangent. ``--blocks`` adds the final-map blocks
 that ``chip_smoke.py --save-blocks`` wrote (the packed run's three packs
-and the packed and dense runs' dense blocks). Each output is compared bit
-for bit with the first build's, each march length with the plain
-forward's, each backward is launched twice to show that it repeats, and
-each kernel is timed straight from its library (median of 10 CUDA-event
-timings of 20 back-to-back launches) in turns: the builds in order, then
-in reverse. Needs a CUDA card and nvcc.
+and the packed and dense runs' dense blocks). Resident: R1 and R2 at the
+probe's shapes (``lvdgs_torch.tools.perf_resident``, seed 0). Each output
+is compared bit for bit with the first build's (R2, whose atomics add in
+any order, within its tolerance of the plain version's), each march
+length with the plain forward's, each backward and B3 are launched twice
+to show that they repeat, and each kernel is timed straight from its
+library (median of 10 CUDA-event timings of 20 back-to-back launches) in
+turns: the builds in order, then in reverse. Needs a CUDA card and nvcc.
 
 To hold whole street runs of two checkouts against each other, use
 ``chip_smoke.py --deterministic-street`` (``--dense`` for B1 and B2).
@@ -46,6 +50,8 @@ from pathlib import Path
 import torch
 
 from ..ops import rasterizer_cuda as rc
+from ..ops import resident_cuda as rs
+from . import perf_resident as pr
 from .blocks import street_packed_blocks
 from .timing import card_line, time_ms
 
@@ -55,13 +61,14 @@ _BUILD = ROOT / "lvdgs_torch" / "_build" / "ab"
 # without touch counts, as tracking and mapping launch them
 KERNELS = {"B4": "packed_fwd_kernel<false, NT_NONE>", "B4-bf16": "packed_fwd_kernel<true, NT_NONE>",
            "B5": "packed_bwd_kernel<false>", "B5-bf16": "packed_bwd_kernel<true>",
-           "B1": "blend_fwd_kernel", "B2": "blend_bwd_kernel"}
-_SOURCES = {"packed": "blend_packed.cu", "dense": "blend.cu"}
+           "B1": "blend_fwd_kernel", "B2": "blend_bwd_kernel", "B3": "median_depth_kernel",
+           "R1": "resident_gather_kernel", "R2": "resident_scatter_kernel"}
+_SOURCES = {"packed": "blend_packed.cu", "dense": "blend.cu", "resident": "resident.cu"}
 
 
 class Build:
-    """One build of blend_packed.cu and blend.cu from one directory, loaded
-    with ctypes."""
+    """One build of blend_packed.cu, blend.cu and resident.cu from one
+    directory, loaded with ctypes."""
 
     def __init__(self, name: str, src_dir: Path):
         self.name = name
@@ -84,7 +91,7 @@ class Build:
                 for lib, cmd in self.cmds.items()}
 
     def load(self) -> None:
-        packed, dense = (ctypes.CDLL(str(self.paths[lib])) for lib in _SOURCES)
+        packed, dense, resident = (ctypes.CDLL(str(self.paths[lib])) for lib in _SOURCES)
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in ("lvdgs_packed_fwd", "lvdgs_packed_fwd_bf16"):
             getattr(packed, fn).argtypes = [p] * 8 + [i] * 5 + [p]
@@ -93,13 +100,18 @@ class Build:
         m = int(self.march_abi)
         dense.lvdgs_blend_fwd.argtypes = [p] * (5 + m) + [i] * 3 + [p]
         dense.lvdgs_blend_bwd.argtypes = [p] * (7 + m) + [i] * 3 + [p]
-        for lib, fn in ((packed, "lvdgs_packed_attrs"), (dense, "lvdgs_blend_attrs")):
+        dense.lvdgs_median_depth.argtypes = [p] * 4 + [i] * 3 + [p]
+        for fn in ("lvdgs_resident_gather", "lvdgs_resident_scatter"):
+            getattr(resident, fn).argtypes = [p] * 3 + [i] * 4 + [p]
+        for lib, fn in ((packed, "lvdgs_packed_attrs"), (dense, "lvdgs_blend_attrs"),
+                        (resident, "lvdgs_resident_attrs")):
             getattr(lib, fn).argtypes = [i, p, p]
-        self.lib, self.dense = packed, dense
+        self.lib, self.dense, self.resident = packed, dense, resident
 
     def attrs(self) -> dict:
         every = {**rc.library_attrs(self.lib.lvdgs_packed_attrs),
-                 **rc.library_attrs(self.dense.lvdgs_blend_attrs)}
+                 **rc.library_attrs(self.dense.lvdgs_blend_attrs),
+                 **rc.library_attrs(self.resident.lvdgs_resident_attrs)}
         return {kernel: every[name] for kernel, name in KERNELS.items()}
 
     def forward(self, args, G: int, ntx: int, mode: int, bf16: bool, outs=None):
@@ -150,6 +162,26 @@ class Build:
                          f"{self.name} B2")
         return dtp
 
+    def median(self, tp, counts, ntx: int, outs=None):
+        """B3: (dmed, opac)."""
+        K, T, _ = tp.shape
+        if outs is None:
+            outs = (torch.empty((T, rc.P), device=tp.device), torch.empty((T, rc.P), device=tp.device))
+        rc._check_launch(self.dense.lvdgs_median_depth(tp.data_ptr(), counts.data_ptr(), *(x.data_ptr() for x in outs),
+                                                       K, T, ntx, rc._stream()), f"{self.name} B3")
+        return outs
+
+    def resident_call(self, fn: str, idx, src, rows: int, out=None):
+        """R1 (fn "gather", src the table) or R2 ("scatter", src the
+        updates) into out."""
+        G, K, TG = idx.shape
+        if out is None:
+            out = torch.empty((G * TG if fn == "gather" else rows, pr.NF), device=idx.device)
+        rc._check_launch(getattr(self.resident, f"lvdgs_resident_{fn}")(
+            idx.data_ptr(), src.data_ptr(), out.data_ptr(), G, K, TG, rows, rc._stream()),
+            f"{self.name} R{1 if fn == 'gather' else 2}")
+        return out
+
 
 def build_all(builds: list[Build]) -> None:
     """Every build's nvcc at once; prints each one's ptxas lines."""
@@ -189,8 +221,9 @@ def _print(builds: list[Build], label: str, report: dict) -> None:
                 extra += f", repeats {r['repeats'][b.name]}"
             if b.name in r.get("march_equals_plain", {}):
                 extra += f", march = plain {r['march_equals_plain'][b.name]}"
-            parts.append(f"{b.name} {ms} ms (equal to {builds[0].name}: {r['equal'][b.name]}, "
-                         f"max diff {r['max_diff'][b.name]:.3e}{extra})")
+            held = (f"within tolerance: {r['within'][b.name]}" if "within" in r
+                    else f"equal to {builds[0].name}: {r['equal'][b.name]}")
+            parts.append(f"{b.name} {ms} ms ({held}, max diff {r['max_diff'][b.name]:.3e}{extra})")
         print(f"ab [{label}] {case}: " + "; ".join(parts), flush=True)
 
 
@@ -248,10 +281,11 @@ def _hold(builds: list[Build], r: dict, dtps: dict) -> None:
 
 
 def ab_dense_block(builds: list[Build], tp, counts, ntx: int, label: str) -> dict:
-    """B1 and B2 of every build on one dense block: acc, trans and touch
+    """B1, B2 and B3 of every build on one dense block: acc, trans and touch
     counts against the first build's, march lengths (where the ABI has them)
     against the plain forward's, B2 on the first build's forward outputs
-    against the first build's and twice, and times in turns."""
+    against the first build's and twice, B3's dmed and opac against the
+    first build's and twice, and times in turns."""
     g = torch.Generator(device=tp.device).manual_seed(1)
     outs = {b.name: b.dense_forward(tp, counts, ntx) for b in builds}
     ref = outs[builds[0].name]
@@ -278,16 +312,57 @@ def ab_dense_block(builds: list[Build], tp, counts, ntx: int, label: str) -> dic
     _hold(builds, r2, dtps)
     r2["ms"] = _times(builds, lambda b: b.dense_backward(tp, counts, outs[b.name][3], acc, trans, dacc,
                                                          dtrans, ntx, dtps[b.name]))
-    report = {"B1": r1, "B2": r2}
+    r3 = {"equal": {}, "max_diff": {}, "repeats": {}}
+    meds = {b.name: b.median(tp, counts, ntx) for b in builds}
+    for b in builds:
+        o, ref3 = meds[b.name], meds[builds[0].name]
+        r3["equal"][b.name] = all(torch.equal(x, y) for x, y in zip(o, ref3))
+        r3["max_diff"][b.name] = max(_diff(x, y) for x, y in zip(o, ref3))
+        r3["repeats"][b.name] = all(torch.equal(x, y) for x, y in zip(b.median(tp, counts, ntx), o))
+    r3["ms"] = _times(builds, lambda b: b.median(tp, counts, ntx, meds[b.name]))
+    report = {"B1": r1, "B2": r2, "B3": r3}
     torch.cuda.synchronize()
     _print(builds, f"{label}, K {tp.shape[0]}, T {tp.shape[1]}", report)
+    return report
+
+
+def ab_resident(builds: list[Build]) -> dict:
+    """R1 and R2 of every build at the probe's shapes: R1 against the first
+    build's and the plain version's bit for bit, R2 against the plain
+    version within its tolerance (its atomics add in any order), and times
+    in turns."""
+    idx, fields, upd = pr.make_inputs(pr.C, pr.T, pr.K, pr.TG, torch.device("cuda"))
+    rows = fields.shape[0]
+    rs._check_rows(idx, rows)
+    report = {}
+    for fn, case, src in (("gather", "R1", fields), ("scatter", "R2", upd)):
+        outs = {b.name: b.resident_call(fn, idx, src, rows) for b in builds}
+        ref = outs[builds[0].name]
+        r = {"max_diff": {}}
+        if fn == "gather":
+            plain = rs.resident_gather_plain(idx, fields)
+            r["equal"] = {b.name: bool(torch.equal(outs[b.name], ref) and torch.equal(outs[b.name], plain))
+                          for b in builds}
+            for b in builds:
+                r["max_diff"][b.name] = _diff(outs[b.name], plain)
+        else:
+            plain = rs.resident_scatter_plain(idx, upd, rows)
+            for b in builds:
+                r["max_diff"][b.name] = _diff(outs[b.name], plain) / float(plain.abs().max())
+            r["within"] = {b.name: r["max_diff"][b.name] <= pr.SCATTER_TOL for b in builds}
+        r["ms"] = _times(builds, lambda b, fn=fn, src=src: b.resident_call(fn, idx, src, rows, outs[b.name]))
+        report[case] = r
+    torch.cuda.synchronize()
+    _print(builds, f"resident, {idx.numel()} slots (R1: equal to the plain version too; R2: within "
+                   f"{pr.SCATTER_TOL:.0e} of the plain version, relative)", report)
     return report
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--source", action="append", required=True, metavar="NAME=DIR",
-                        help="a directory holding blend_packed.cu and blend.cu; the first is the reference")
+                        help="a directory holding blend_packed.cu, blend.cu and resident.cu; the first is "
+                             "the reference")
     parser.add_argument("--blocks", type=Path,
                         help="also the final-map blocks that chip_smoke.py --save-blocks wrote")
     parser.add_argument("--out", type=Path, help="write the report as JSON here")
@@ -308,6 +383,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     (tp, counts), ntx, packed = street_packed_blocks(dev)
     report["blocks"]["random, dense"] = ab_dense_block(builds, tp, counts, ntx, "random, dense")
+    report["blocks"]["resident"] = ab_resident(builds)
     for bud, _sort, a, G in packed:
         label = f"random, budget {bud}"
         report["blocks"][f"{label}, NB {a[0].shape[0]}"] = ab_block(builds, a, G, ntx, label)

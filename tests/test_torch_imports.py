@@ -65,7 +65,8 @@ def test_kernel_sources_are_in_the_package():
                              "template <bool BF16>\n" + blend + "packed_bwd_kernel"),
                             ("lvdgs_packed_fwd", "lvdgs_packed_bwd", "lvdgs_packed_fwd_bf16",
                              "lvdgs_packed_bwd_bf16")),
-        "resident.cu": (("__global__ void resident_gather_kernel", "__global__ void zero_kernel",
+        "resident.cu": (("__global__ void __launch_bounds__(32)\nresident_gather_kernel",
+                         "__global__ void zero_kernel",
                          "__global__ void resident_scatter_kernel"),
                         ("lvdgs_resident_gather", "lvdgs_resident_scatter")),
     }

@@ -17,7 +17,9 @@ forward rounds at the same points as its plain version (one rounding per
 bf16 operation) and is held bit for bit. The rasterizer's gradients also
 pass through the scatter-add of the slot gather, whose atomic adds run in
 any order, and are held to 1e-3 of each field's largest gradient. The
-resident gather adds in its plain version's order and is held bit for bit;
+resident gather adds in its plain version's order and is held bit for bit,
+also at the edges of its launch shape (one lane or the most per group, one
+slot, none, slot counts that end inside a chunk or past one staging pass);
 the resident scatter adds with atomics, in any order, and is held to 1e-5
 of the table's largest magnitude.
 """
@@ -160,6 +162,30 @@ def test_resident_kernels_match_plain(cuda_device, C, T, K, TG):
     assert torch.equal(rs.resident_gather(idx, fields), rs.resident_gather_plain(idx, fields))
     out, ref = rs.resident_scatter(idx, upd, C + 1), rs.resident_scatter_plain(idx, upd, C + 1)
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,G,K,TG", [
+    (7, 5, 40, 1),  # one lane per group; 7 rows, so bags repeat rows; K not a multiple of 32
+    (7, 3, 1, 64),  # the most lanes per group (MAX_TG); one slot
+    (1000, 4, 33, 3),  # an odd lane count; one slot past a chunk of 32
+    (50, 2, 1100, 2),  # more slots than one pass stages (512)
+    (10, 0, 16, 8),  # no group: nothing launched
+    (3, 6, 0, 4),  # no slot: zeros
+])
+def test_resident_gather_edge_shapes(cuda_device, rows, G, K, TG):
+    """R1 at the edges of its launch shape, bit for bit its plain version's
+    and its own when launched again."""
+    g = np.random.default_rng(rows + G + K + TG)
+    idx = torch.tensor(g.integers(0, rows, (G, K, TG)), dtype=torch.int32, device=cuda_device)
+    fields = torch.tensor(g.normal(size=(rows, rs.NF)), dtype=torch.float32, device=cuda_device)
+    before = rs.resident_gather.launches.count
+    out = rs.resident_gather(idx, fields)
+    assert out.shape == (G * TG, rs.NF)
+    assert torch.equal(out, rs.resident_gather_plain(idx, fields))
+    assert torch.equal(rs.resident_gather(idx, fields), out)
+    assert rs.resident_gather.launches.count - before == (2 if G else 0)
     torch.cuda.synchronize()
 
 
