@@ -15,11 +15,16 @@ Phases, each of which must pass:
    the tracking, mapping and probe budgets; the bf16 packed kernels at NB
    348 and 464, and against the float32 ones at the reference's bar), and
    the resident-table kernels at the probe tool's shapes (2^17 rows, 1848
-   tiles in groups of 8, 256 slots), and time each with CUDA events beside
-   its plain version (and, for the resident kernels, the library call that
-   computes the same function): each kernel through its wrapper (ms, as a
-   caller launches it) and straight from its library on preallocated
-   outputs (kernel_ms, without the wrapper's host time); each blend
+   tiles in groups of 8, 256 slots) and R2 at its edge shapes (one row
+   taking every slot, counts that end inside a thread's or a block's
+   share, no group), and time each with CUDA events beside its plain
+   version (and, for the resident kernels, the library call that computes
+   the same function): each kernel through its wrapper (ms, as a caller
+   launches it) and straight from its library on preallocated outputs
+   (kernel_ms, without the wrapper's host time; the few-microsecond
+   kernels R1, R2 and B3, and the resident library calls, also from a
+   CUDA graph, graph_ms, without the host's launch, and R2's zero and
+   scatter passes each alone that way); each blend
    forward's (dense and packed) march lengths and touch counts must equal
    its plain version's, and each blend backward and the median launched
    twice on the same inputs must give the same bits; show that the packed
@@ -27,13 +32,20 @@ Phases, each of which must pass:
    and check the card's render of a small scene against the CPU render and
    the NumPy oracle;
 3. drive the SLAM loop (SLAM.run) on configs/mono/synthetic/street.yaml at
-   full width three times: as configured (packed tracking at 96 and mapping
+   full width four times: as configured (packed tracking at 96 and mapping
    at 128 slots per tile, with saturation feedback), which must launch B1,
    B3, B4 and B5; with Performance.blend_bf16, which must launch B4-bf16 and
-   B5-bf16 and no float32 B5; and dense (budgets 0), which must launch B1, B2
-   and B3; each must end with finite poses and map, at least 2 keyframes
-   after init, ATE RMSE < 0.08 m and PSNR > 17 dB; then hold the kernels
-   against their plain versions again on the slots the packed and the
+   B5-bf16 and no float32 B5; dense (budgets 0), which must launch B1, B2
+   and B3; and as configured with Training.track_pyramid, which must launch
+   B1 and B3, and B4 and B5 in both tracking stages (told apart by their
+   launch shapes: the coarse stage blends 613x185 in 468 tiles, 30 groups,
+   at 192 slots per tile, NB 180); each must end with finite poses and map,
+   at least 2 keyframes after init, ATE RMSE < 0.08 m and PSNR > 17 dB;
+   right after the pyramid run, hold B4 (with touch counts, without, and
+   as the probe) and B5 against their plain versions at the coarse stage's
+   pack of its final map from the newest keyframe, and time them; then
+   hold the kernels against their plain versions again on the slots the
+   packed and the
    dense run's final maps give from their newest keyframes (B1-B3 on both,
    timed beside the random block's), and the packed run's bf16 renders
    against the float32 ones from every keyframe by the reference's own
@@ -42,7 +54,9 @@ Phases, each of which must pass:
    drive the float32 street run once more, which must end with the first
    run's map and poses bit for bit; then drive the resident-table probe
    (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
-4. print the per-kernel JSON line, then the result line.
+4. print the per-kernel JSON line (B4 and B5 also at the coarse pack, under
+   their own names, with the coarse stage's launches), then the result
+   line.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 outside a checkout, or when any phase fails.
@@ -168,7 +182,7 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
     and the kernels timed again as built with multiply-add contraction."""
     import torch
     from lvdgs_torch.ops import rasterizer_cuda as rc
-    from lvdgs_torch.tools.timing import bound_ms, time_ms
+    from lvdgs_torch.tools.timing import bound_ms, graph_ms, time_ms
 
     K, T, _ = tp.shape
     g = torch.Generator(device=tp.device).manual_seed(1)
@@ -241,13 +255,20 @@ def check_kernels(tp, counts, ntx: int, label: str) -> dict:
         # straight from the library, without the wrapper's host time
         r["ms"] = time_ms(lambda: r["wrapper"](*args), reps=10, inner=20)
         r["kernel_ms"] = time_ms(lambda: call(shipped), reps=10, inner=20)
+        graph = ""
+        if name == "median_depth":
+            # a launch of a few microseconds also waits on the host's launch
+            # from Python; from a CUDA graph, it does not
+            r["graph_ms"] = graph_ms(lambda: call(shipped))
+            graph = f", {r['graph_ms']:.4f} from a CUDA graph"
         fmad_ms = time_ms(lambda: call(fmad), reps=10, inner=20)
         again_ms = time_ms(lambda: call(shipped), reps=10, inner=20)
         r["plain_ms"] = time_ms(lambda: r["plain"](*args), reps=10, warmup=1)
         m = marched[r["threshold"]]
         r["bound_ms"], r["bound_by"] = bound_ms(m * rc.NF * 4 + T * 4 + r["io_bytes"], m * rc.P * r["ops"])
         print(f"kernel {name} [{label}]: {r['ms']:.4f} ms through the wrapper ({r['kernel_ms']:.4f} "
-              f"straight from the library), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"straight from the library{graph}), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {m} tile-slots marched)", flush=True)
         print(f"kernel {name} [{label}]: with multiply-add contraction {fmad_ms:.4f} ms against "
               f"{r['kernel_ms']:.4f} / {again_ms:.4f} ms as shipped (-fmad=false), straight from the "
@@ -601,13 +622,15 @@ def check_resident(device) -> dict:
     """R1 and R2 against their plain versions at the probe tool's shapes
     (lvdgs_torch.tools.perf_resident, seed 0): R1 bit for bit, R2 within
     SCATTER_TOL of the table's largest magnitude (atomics add in any
-    order); each timed through its wrapper and straight from its library
-    on preallocated outputs, beside its plain version and the one library
-    call that computes the same function (embedding_bag sum over the
-    per-(group, lane) bags, index_add_)."""
+    order), also at its edge shapes (SCATTER_EDGES); each timed through its
+    wrapper, straight from its library on preallocated outputs and from a
+    CUDA graph of those launches (R2's zero and scatter passes also each
+    alone), beside its plain version and the one library call that
+    computes the same function (embedding_bag sum over the per-(group,
+    lane) bags, index_add_)."""
     from lvdgs_torch.ops import resident_cuda as rs
     from lvdgs_torch.tools import perf_resident as pr
-    from lvdgs_torch.tools.timing import time_ms
+    from lvdgs_torch.tools.timing import graph_ms, time_ms
 
     idx, fields, upd = pr.make_inputs(pr.C, pr.T, pr.K, pr.TG, device)
     rows = fields.shape[0]
@@ -620,6 +643,14 @@ def check_resident(device) -> dict:
           f"{err['scatter_rel']:.3e} of the table's largest magnitude (tolerance {pr.SCATTER_TOL:.0e}) ok; "
           f"library calls against the kernels: embedding_bag {err['embedding_bag sum']:.3e}, index_add_ "
           f"{err['index_add_ scatter']:.3e}", flush=True)
+    for shape in pr.SCATTER_EDGES:
+        e = pr.scatter_edge_error(*shape, device)
+        ok = e <= pr.SCATTER_TOL
+        print(f"kernel resident_scatter at the edge shape (rows, G, K, TG) = {shape}: error {e:.3e} of the "
+              f"table's largest magnitude (tolerance {pr.SCATTER_TOL:.0e}) {'ok' if ok else 'DISAGREES'}",
+              flush=True)
+        if not ok:
+            fail(f"resident_scatter disagrees with its plain version at the edge shape {shape}")
     lib = pr.library_calls(idx, fields, upd)
     report = {}
     for name, key, plain, library in (
@@ -633,9 +664,20 @@ def check_resident(device) -> dict:
         r["plain_ms"] = time_ms(plain, reps=10, warmup=1)
         r["library_ms"] = time_ms(ops[library], reps=10, inner=20)
         r["bound_ms"], r["bound_by"] = bnd[key]
+        # straight from the library a launch of a few microseconds waits on
+        # the host's launch from Python; from a CUDA graph, it does not
+        r["graph_ms"], r["library_graph_ms"] = graph_ms(lib[key]), graph_ms(ops[library])
+        if key == "scatter":
+            # its two passes apart, each alone, from CUDA graphs
+            r["zero_ms"], r["scatter_ms"] = graph_ms(lib["scatter zero"]), graph_ms(lib["scatter add"])
+            print(f"kernel {name}: zero pass {r['zero_ms']:.4f} ms, scatter pass {r['scatter_ms']:.4f} ms "
+                  f"(each alone, from a CUDA graph)", flush=True)
+        ns = r["graph_ms"] * 1e6 / idx.numel()
         print(f"kernel {name}: {r['ms']:.4f} ms through the wrapper ({r['kernel_ms']:.4f} straight from the "
-              f"library; {r['kernel_ms'] * 1e6 / idx.numel():.3f} ns per slot), plain {r['plain_ms']:.3f} ms, "
-              f"{library} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              f"library, {r['graph_ms']:.4f} from a CUDA graph; {ns:.3f} ns per slot), plain "
+              f"{r['plain_ms']:.3f} ms, "
+              f"{library} {r['library_ms']:.4f} ms ({r['library_graph_ms']:.4f} from a CUDA graph), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
         report[name] = r
     return report
@@ -659,11 +701,13 @@ def run_resident_probe() -> dict:
     return launches
 
 
-def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits: bool = True):
+def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits: bool = True,
+             pyramid: bool = False):
     """Phase 3: the SLAM main path on the street scene, as configured
-    (packed), as configured with blend_bf16 (bf16), or with both packed
-    budgets at 0 (dense). Without `hold_limits` an ATE or PSNR miss is
-    printed and does not fail."""
+    (packed), as configured with blend_bf16 (bf16) or with
+    Training.track_pyramid (pyramid), or with both packed budgets at 0
+    (dense). Without `hold_limits` an ATE or PSNR miss is printed and does
+    not fail."""
     import numpy as np
     import torch
 
@@ -672,7 +716,7 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     from lvdgs_torch.ops import rasterizer_cuda as rc
     from lvdgs_torch.slam.system import SLAM
 
-    label = ("packed bf16" if bf16 else "packed") if packed else "dense"
+    label = ("packed bf16" if bf16 else "packed pyramid" if pyramid else "packed") if packed else "dense"
     config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
     perf = config["Performance"]
     if not packed:
@@ -681,6 +725,7 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     perf["blend_bf16"] = bf16
     perf["synced_timers"] = True
     config["Training"]["mono_scale_servo"] = False
+    config["Training"]["track_pyramid"] = pyramid
     config["Results"]["eval_rendering"] = True
     n_frames_full = config["Dataset"]["n_frames"]
     config["Dataset"]["n_frames"] = frames
@@ -692,10 +737,10 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     print(f"{label} path: street.yaml at {cal['width']}x{cal['height']}, max_per_tile "
           f"{perf['max_per_tile']}, map_capacity {perf['map_capacity']}, kf_capacity "
           f"{perf['kf_capacity']}, window_size {config['Training']['window_size']}, packed budgets "
-          f"{budgets}, blend_bf16 {bf16}, mono_scale_servo False", flush=True)
+          f"{budgets}, blend_bf16 {bf16}, track_pyramid {pyramid}, mono_scale_servo False", flush=True)
     if (packed != slam.rcfg_track.use_packed or packed != slam.rcfg_map.use_packed
             or bf16 != slam.rcfg_track.blend_bf16 or bf16 != slam.rcfg_map.blend_bf16
-            or slam.rcfg.blend_bf16):
+            or slam.rcfg.blend_bf16 or pyramid != slam.tcfg.pyramid):
         fail(f"the {label} run does not render as asked")
     if frames != n_frames_full:
         print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
@@ -707,6 +752,7 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
+    shapes = {w.__name__: w.launches.by_shape for w in (rc.packed_blend_forward, rc.packed_blend_backward)}
 
     ate = eval_ate(slam.frames, slam.kf_indices, None, frames, final=True, monocular=True)
     psnr = results.get("mean_psnr", float("nan"))
@@ -721,6 +767,8 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     print(f"{label} path: keyframes {slam.kf_indices}, map scale observations "
           f"{[(k, round(v, 4)) for k, v in slam._scale_history]}", flush=True)
     print(f"launches on the {label} path: {json.dumps(launches)}", flush=True)
+    print(f"packed launches on the {label} path by (NB, G): "
+          f"{ {name: {str(k): n for k, n in by.items()} for name, by in shapes.items()} }", flush=True)
 
     if n_after_init < 2:
         fail(f"{label} path: only {n_after_init} keyframes after init; the path needs at least 2")
@@ -737,6 +785,33 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     for name in must:
         if launches[name] == 0:
             fail(f"kernel {name} was never launched on the {label} path")
+    if pyramid:
+        # B4 and B5 in both stages, told apart by their launch shapes: each
+        # stage blends its frame's tile groups at its budget's chunk count
+        # NB (mapping, and the saturation probe at max_per_tile, blend at
+        # other counts); each stage's (NB, G) is the one its pack code gives
+        # the final map from the newest keyframe
+        from lvdgs_torch.tools.blocks import main_path_track_block
+
+        stages = {}
+        for stage, coarse in (("fine", False), ("coarse", True)):
+            args, G, ntx, budget = main_path_track_block(slam, coarse)
+            NB = args[0].shape[0]
+            del args
+            stages[stage] = {name: by.get((NB, G), 0) for name, by in shapes.items()}
+            print(f"{label} path, {stage} stage ({ntx} tile columns, {G} groups, budget {budget}, NB {NB}): "
+                  f"launches {json.dumps(stages[stage])}", flush=True)
+            for name, n in stages[stage].items():
+                if n == 0:
+                    fail(f"kernel {name} was never launched in the {stage} stage of the {label} path at "
+                         f"the stage's pack (NB, G) = ({NB}, {G}); it launched at "
+                         f"{sorted(shapes[name])}")
+        # each tracking step launches B5 once, at its stage's pack
+        calls = results["timers"]["tracking"]["count"]
+        print(f"{label} path: {calls} tracking calls, coarse stage "
+              f"{stages['coarse']['packed_blend_backward'] / calls:.2f} and fine stage "
+              f"{stages['fine']['packed_blend_backward'] / calls:.2f} iterations a call", flush=True)
+        launches["stages"] = stages
     poses = np.stack([np.concatenate([np.ravel(f["R"]), np.ravel(f["T"])])
                       for f in slam.frames.values()])
     if not np.isfinite(poses).all():
@@ -824,7 +899,8 @@ def check_default_budgets(device) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--frames", type=int, default=20, help="street frames of the packed run")
+    parser.add_argument("--frames", type=int, default=20,
+                        help="street frames of the packed runs (float32, its rerun, and with the pyramid)")
     parser.add_argument("--bf16-frames", type=int, default=20,
                         help="street frames of the packed run with blend_bf16")
     parser.add_argument("--dense-frames", type=int, default=20,
@@ -841,6 +917,7 @@ def main() -> None:
     parser.add_argument("--against", metavar="FILE",
                         help="with --deterministic-street: compare bit for bit with a FILE it wrote")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if args.deterministic_street:
         # cuBLAS repeats its reductions only with this workspace, set before
         # its first call
@@ -892,7 +969,7 @@ def main() -> None:
 
     # phase 2
     from lvdgs_torch.tools.blocks import (
-        main_path_dense_block, main_path_packed_blocks, street_packed_blocks,
+        main_path_dense_block, main_path_packed_blocks, main_path_track_block, street_packed_blocks,
     )
 
     (tp, counts), ntx, street_packed = street_packed_blocks(device)
@@ -911,12 +988,24 @@ def main() -> None:
     # phase 3
     check_default_budgets(device)
     launches = {}
-    for packed, bf16, frames in ((True, False, args.frames), (True, True, args.bf16_frames),
-                                 (False, False, args.dense_frames)):
-        run_launches, slam = run_slam(device, frames, packed, bf16)
+    for packed, bf16, pyramid, frames in ((True, False, False, args.frames),
+                                          (True, True, False, args.bf16_frames),
+                                          (False, False, False, args.dense_frames),
+                                          (True, False, True, args.frames)):
+        run_launches, slam = run_slam(device, frames, packed, bf16, pyramid=pyramid)
+        stages = run_launches.pop("stages", None)
         for name, n in run_launches.items():
             launches[name] = launches.get(name, 0) + n
-        if packed and not bf16:
+        if pyramid:
+            # B4 and B5 at the coarse stage's pack, on the pyramid run's
+            # final map: held against their plain versions and timed
+            coarse_args, coarse_G, coarse_ntx, coarse_budget = main_path_track_block(slam, coarse=True)
+            coarse_report = check_packed(coarse_args, coarse_G, coarse_ntx,
+                                         f"pyramid run's final map, coarse stage, budget {coarse_budget}",
+                                         bf16=False)
+            coarse_launches = stages["coarse"]
+            del coarse_args
+        elif packed and not bf16:
             packed_slam = slam
         elif not packed:
             dense_slam = slam
@@ -959,23 +1048,33 @@ def main() -> None:
 
     # B4 and B5 (and their bf16 variants) in the JSON line: the tracking
     # budget's shape (NB 348), B4 without touch counts, as tracking and
-    # mapping launch it
+    # mapping launch it (the pyramid's coarse pack below)
     track = packed_report[96]
     report["packed_blend_forward"] = track["B4 no_nt"]
     report["packed_blend_backward"] = track["B5"]
     report["packed_blend_forward_bf16"] = track["B4-bf16 no_nt"]
     report["packed_blend_backward_bf16"] = track["B5-bf16"]
     report.update(resident_report)
+    # B4 and B5 again at the pyramid's coarse pack, under their own keys,
+    # with the coarse stage's launches
+    report["packed_blend_forward_coarse"] = coarse_report["B4 no_nt"]
+    report["packed_blend_backward_coarse"] = coarse_report["B5"]
+    launches["packed_blend_forward_coarse"] = coarse_launches["packed_blend_forward"]
+    launches["packed_blend_backward_coarse"] = coarse_launches["packed_blend_backward"]
     kernels = []
     for name, r in report.items():
+        base = name.removesuffix("_coarse")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[base], "replaces": REPLACES[base],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "kernel_ms": r.get("kernel_ms"),
-            "id": KERNEL_IDS[name], "status": "ported",
-            **attrs[ATTRS[name]],
+            "id": KERNEL_IDS[base] + (" (pyramid coarse pack)" if base != name else ""),
+            "status": "ported",
+            **{k: r[k] for k in ("graph_ms", "library_graph_ms", "zero_ms", "scatter_ms") if k in r},
+            **attrs[ATTRS[base]],
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,24 +83,35 @@ _NVCC_FLAGS = [
 
 
 class LaunchCounter:
-    """Number of kernel launches made by one wrapper. Thread-safe: the
-    dataset's prefetch thread renders through the same kernels."""
+    """Number of kernel launches made by one wrapper, in all and per launch
+    shape where the wrapper names one (the packed kernels: (NB, G)).
+    Thread-safe: the dataset's prefetch thread renders through the same
+    kernels."""
 
     def __init__(self) -> None:
         self._n = 0
+        self._shapes: dict = {}
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, shape=None) -> None:
         with self._lock:
             self._n += 1
+            if shape is not None:
+                self._shapes[shape] = self._shapes.get(shape, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._shapes = {}
 
     @property
     def count(self) -> int:
         return self._n
+
+    @property
+    def by_shape(self) -> dict:
+        with self._lock:
+            return dict(self._shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +190,7 @@ def _load(fmad: bool) -> types.SimpleNamespace:
         ("blend_packed", "lvdgs_packed_bwd_bf16"): [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
         ("resident", "lvdgs_resident_gather"): [p, p, p, i, i, i, i, p],
         ("resident", "lvdgs_resident_scatter"): [p, p, p, i, i, i, i, p],
+        ("resident", "lvdgs_resident_scatter_add"): [p, p, p, i, i, i, i, p],
         ("blend", "lvdgs_blend_attrs"): [i, p, p],
         ("blend_packed", "lvdgs_packed_attrs"): [i, p, p],
         ("resident", "lvdgs_resident_attrs"): [i, p, p],
@@ -640,7 +652,7 @@ def _packed_forward(tp, cg, k0, goff, tids, n_groups: int, ntx: int, with_nt: bo
              trans.data_ptr(), nt.data_ptr(), march.data_ptr(), NB, n_groups, TG, ntx, mode,
              _stream())
     _check_launch(err, wrapper.__name__)
-    wrapper.launches.add()
+    wrapper.launches.add((NB, n_groups))
     return acc, trans, nt, march
 
 
@@ -698,7 +710,7 @@ def _packed_backward(tp, cg, k0, goff, tids, march, acc, trans, dacc, dtrans, n_
              acc.data_ptr(), trans.data_ptr(), dacc.data_ptr(), dtrans.data_ptr(), dtp.data_ptr(),
              NB, n_groups, TG, ntx, _stream())
     _check_launch(err, wrapper.__name__)
-    wrapper.launches.add()
+    wrapper.launches.add((NB, n_groups))
     return dtp
 
 

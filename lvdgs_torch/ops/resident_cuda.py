@@ -21,7 +21,9 @@ plain version add in k order from zero, as the Pallas kernel's loop does.
 R2's plain version adds in flat slot order, as the Pallas grid does
 (``index_add_`` on the CPU); the kernel adds with atomics, in another order
 on every run, so it agrees with the plain version to rounding, not bit for
-bit.
+bit. The kernel reads ``upd`` and adds into the table 16 bytes at a time,
+so ``resident_scatter`` refuses an ``upd`` that is not 16-byte aligned, on
+every device.
 """
 from __future__ import annotations
 
@@ -104,9 +106,12 @@ def resident_gather(idx: torch.Tensor, fields: torch.Tensor, check_rows: bool = 
 def resident_scatter(idx: torch.Tensor, upd: torch.Tensor, rows: int,
                      check_rows: bool = True) -> torch.Tensor:
     """R2: a (rows, 16) table of zeros with upd[g, k, tg] added to row
-    idx[g, k, tg] for every slot. upd is (G, K, TG, 16) float32; an index
-    outside [0, rows) raises (`check_rows` as in resident_gather)."""
+    idx[g, k, tg] for every slot. upd is (G, K, TG, 16) float32, 16-byte
+    aligned; an index outside [0, rows) raises (`check_rows` as in
+    resident_gather)."""
     _check(idx, upd, (*idx.shape, NF), "upd")
+    if upd.data_ptr() % 16:
+        raise ValueError("upd must be 16-byte aligned (the kernel loads 4 fields at a time)")
     if rows < 1:
         raise ValueError(f"rows must be positive, got {rows}")
     if check_rows:

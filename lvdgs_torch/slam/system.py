@@ -18,10 +18,9 @@ runs the packed tracking and mapping renders' weight math in bfloat16.
 
 Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: the active-prefix binning bucket (C4), pyramid tracking (A6),
-global BA and checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors
-(A12), the GUI and the visualisation panels (A14) and data-parallel
-mapping (A15).
+ROADMAP item: the active-prefix binning bucket (C4), global BA and
+checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors (A12), the GUI
+and the visualisation panels (A14) and data-parallel mapping (A15).
 """
 from __future__ import annotations
 
@@ -51,7 +50,7 @@ from .keyframe import add_to_window, is_keyframe, visibility_pair_stats, visibil
 from .mapping import (
     MappingConfig, color_refine_run, covisibility_prune, covisibility_prune_from_occ, mapping_run,
 )
-from .tracking import TrackingConfig, track_camera
+from .tracking import TrackingConfig, track_camera, track_camera_pyramid
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,7 +69,6 @@ def _refuse_unported(config: dict) -> None:
     checks = [
         (perf.get("bin_active_bucket", False), "the active-prefix binning bucket (ROADMAP C4)"),
         (perf.get("data_parallel", False), "data-parallel mapping (ROADMAP A15)"),
-        (tr.get("track_pyramid", False), "pyramid tracking (ROADMAP A6)"),
         (res.get("global_BA", False), "global bundle adjustment (ROADMAP A7)"),
         (res.get("use_gui", False), "the GUI feed (ROADMAP A14)"),
         (res.get("save_depth_comparison", False),
@@ -173,6 +171,11 @@ class SLAM:
             convergence_eps=tr.get("convergence_eps", 1e-4),
             plateau_tol=tr.get("plateau_tol", 0.005),
             plateau_min_iters=tr.get("plateau_min_iters", 40),
+            # coarse-to-fine tracking (track_camera_pyramid)
+            pyramid=bool(tr.get("track_pyramid", False)),
+            coarse_iters=tr.get("track_coarse_iters", 60),
+            coarse_min_iters=tr.get("track_coarse_min_iters", 20),
+            fine_min_iters=tr.get("track_fine_min_iters", 20),
             use_static_mask=bool(tr.get("tracking_use_mask", False)),
         )
         common = dict(
@@ -719,8 +722,8 @@ class SLAM:
 
     def _track(self, idx: int, cam: Camera):
         cam = self._pose_seed(idx, cam)
-        res = track_camera(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg_track,
-                           self.tcfg)
+        track = track_camera_pyramid if self.tcfg.pyramid else track_camera
+        res = track(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg_track, self.tcfg)
         cam = cam.update_RT(res.R, res.T).replace(exposure_a=res.exposure_a, exposure_b=res.exposure_b)
         self._cams[idx] = cam
         last_kf = self.current_window[0] if self.current_window else None

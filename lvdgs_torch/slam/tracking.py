@@ -1,5 +1,5 @@
-"""Frame-to-map tracking (PyTorch port of ``track_camera`` in
-``lvdgs_tpu/slam/tracking.py``).
+"""Frame-to-map tracking (PyTorch port of ``track_camera`` and
+``track_camera_pyramid`` in ``lvdgs_tpu/slam/tracking.py``).
 
 Up to `max_iters` Adam steps over a 6-dof se(3) pose delta and an affine
 exposure (a, b), each rendering the map and differentiating the
@@ -62,6 +62,12 @@ class TrackingConfig:
     # re-probe the saturation caps at the next rebin once the drift metric
     # ||d trans|| + 10 ||d rot|| since the last probe exceeds this
     cap_reprobe_drift: float = 0.02
+    # coarse-to-fine (track_camera_pyramid): a half-resolution stage of at
+    # most coarse_iters steps seeds the full-resolution one
+    pyramid: bool = False
+    coarse_iters: int = 60
+    coarse_min_iters: int = 20
+    fine_min_iters: int = 20  # the fine stage's plateau_min_iters
     # the final dense bookkeeping render (its n_touched); off, n_touched is 0
     final_render: bool = True
     # gate dynamic pixels out of the tracking loss with cam.static_mask
@@ -205,3 +211,70 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
         image=s["image"], depth=s["depth"], opacity=s["opacity"], n_touched=final_nt,
         median_depth=median_depth, iterations=it_host, loss=s["loss"],
     )
+
+
+def _downsample2_image(img: torch.Tensor) -> torch.Tensor:
+    """(C, H, W) -> (C, H // 2, W // 2) 2x2 mean pool (odd edges cropped)."""
+    C, H, W = img.shape
+    H2, W2 = H // 2, W // 2
+    return img[:, : H2 * 2, : W2 * 2].reshape(C, H2, 2, W2, 2).mean(dim=(2, 4))
+
+
+def _downsample2_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool -> (H // 2, W // 2) any-pool: a coarse pixel is in if any
+    of its fine pixels is."""
+    H, W = mask.shape
+    H2, W2 = H // 2, W // 2
+    return mask[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2).any(dim=3).any(dim=1)
+
+
+def half_res_intrinsics(intr: Intrinsics) -> Intrinsics:
+    """Half-resolution intrinsics, pixel centres kept: the fine pixel centre
+    u maps to the coarse coordinate (u - 0.5) / 2. Not Intrinsics.scaled,
+    which neither shifts the principal point nor floors the size."""
+    return Intrinsics(
+        fx=intr.fx / 2.0, fy=intr.fy / 2.0, cx=(intr.cx - 0.5) / 2.0, cy=(intr.cy - 0.5) / 2.0,
+        width=intr.width // 2, height=intr.height // 2, znear=intr.znear, zfar=intr.zfar,
+    )
+
+
+def coarse_render_config(rcfg: RenderConfig) -> RenderConfig:
+    """The pyramid's coarse-stage render config: packed at twice the slot
+    budget, capped at max_per_tile (a coarse tile covers four fine ones)."""
+    if not rcfg.use_packed:
+        return rcfg
+    return dataclasses.replace(rcfg, slot_budget_per_tile=min(rcfg.max_per_tile,
+                                                              rcfg.slot_budget_per_tile * 2))
+
+
+def track_camera_pyramid(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConfig,
+                         tcfg: TrackingConfig) -> TrackResult:
+    """Coarse-to-fine tracking (TrackingConfig.pyramid): a half-resolution
+    stage (at most coarse_iters steps, plateau exit from coarse_min_iters,
+    no final render, coarse_render_config), then the
+    full-resolution track_camera from its pose and exposure with its plateau
+    exit from fine_min_iters. Returns the fine stage's result with the two
+    stages' iterations summed. Saturation caps are probed inside each stage.
+    A speed choice of the reference package, with no counterpart in the
+    original system, which tracks at full resolution only."""
+    intr2 = half_res_intrinsics(intr)
+    H2, W2 = intr2.height, intr2.width
+    dev = cam.image.device
+    cam2 = cam.replace(
+        image=_downsample2_image(cam.image),
+        grad_mask=_downsample2_mask(cam.grad_mask),
+        depth=torch.zeros((H2, W2), dtype=torch.float32, device=dev),
+        mono_depth=torch.zeros((H2, W2), dtype=torch.float32, device=dev),
+        # all-pool: a coarse pixel is static only if all its fine pixels are
+        static_mask=(~_downsample2_mask(~cam.static_mask) if tcfg.use_static_mask
+                     else torch.ones((H2, W2), dtype=torch.bool, device=dev)),
+    )
+    rcfg2 = coarse_render_config(rcfg)
+    tcfg_c = dataclasses.replace(tcfg, max_iters=tcfg.coarse_iters,
+                                 plateau_min_iters=tcfg.coarse_min_iters, final_render=False)
+    res_c = track_camera(params, active, cam2, intr2, rcfg2, tcfg_c)
+    cam_f = cam.update_RT(res_c.R, res_c.T).replace(exposure_a=res_c.exposure_a,
+                                                    exposure_b=res_c.exposure_b)
+    tcfg_f = dataclasses.replace(tcfg, plateau_min_iters=tcfg.fine_min_iters)
+    res_f = track_camera(params, active, cam_f, intr, rcfg, tcfg_f)
+    return res_f._replace(iterations=res_c.iterations + res_f.iterations)

@@ -100,6 +100,31 @@ def main_path_packed_blocks(slam):
     return blocks, G, ntx
 
 
+def main_path_track_block(slam, coarse: bool):
+    """The packed block tracking blends at a run's end: the final map seen
+    from the newest keyframe's pose, packed as tracking packs it, at full
+    resolution or (`coarse`) as the pyramid's coarse stage does, at half
+    resolution (half_res_intrinsics) and twice the tracking budget, capped
+    at max_per_tile (coarse_render_config). Returns (packed inputs, G, ntx,
+    budget): the kernels launch it at (NB, G) = (inputs[0].shape[0], G)."""
+    from ..ops import rasterizer as tr
+    from ..slam.tracking import coarse_render_config, half_res_intrinsics
+
+    p, active = slam.gmap.params(), slam.gmap.active
+    slot = slam.kf_slots[slam.kf_indices[-1]]
+    R, T = slam.kfbuf.R[slot], slam.kfbuf.T[slot]
+    intr = half_res_intrinsics(slam.intr) if coarse else slam.intr
+    cfg = coarse_render_config(slam.rcfg_track) if coarse else slam.rcfg_track
+    ntx, nty = cfg.grid(intr)
+    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active, R, T, intr)
+    colors, opac = tr._blend_inputs(p, active)
+    fields = tr._fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
+    goff = torch.zeros(1, dtype=torch.int32, device=fields.device)
+    pb = tr.prepare_bins(p, active, R, T, intr, cfg)
+    args = [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids]
+    return args, -(-ntx * nty // cfg.tile_group), ntx, cfg.slot_budget_per_tile
+
+
 def main_path_dense_block(slam):
     """The (K, T, 10) slot block and counts that a run's exact render of its
     final map from the newest keyframe blends (dense, max_per_tile slots).

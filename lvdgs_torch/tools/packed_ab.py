@@ -3,7 +3,7 @@ dense B1 and B2, the median B3) and of the resident-table kernels (R1, R2)
 held against each other on one card.
 
     python -m lvdgs_torch.tools.packed_ab --source NAME=DIR [--source NAME=DIR ...]
-        [--blocks FILE] [--out FILE]
+        [--blocks FILE] [--out FILE] [--resident-only]
 
 Each DIR holds a ``blend_packed.cu``, a ``blend.cu`` and a ``resident.cu``
 with the headers they include: this tree's ``lvdgs_torch/csrc``, a parent
@@ -25,13 +25,17 @@ street-shaped block (K 256, T 1848), B2 on the first build's forward
 outputs and one random cotangent. ``--blocks`` adds the final-map blocks
 that ``chip_smoke.py --save-blocks`` wrote (the packed run's three packs
 and the packed and dense runs' dense blocks). Resident: R1 and R2 at the
-probe's shapes (``lvdgs_torch.tools.perf_resident``, seed 0). Each output
+probe's shapes (``lvdgs_torch.tools.perf_resident``, seed 0), and R2's
+zero and scatter passes each alone (``--resident-only``: R1 and R2
+alone). Each output
 is compared bit for bit with the first build's (R2, whose atomics add in
 any order, within its tolerance of the plain version's), each march
 length with the plain forward's, each backward and B3 are launched twice
 to show that they repeat, and each kernel is timed straight from its
 library (median of 10 CUDA-event timings of 20 back-to-back launches) in
-turns: the builds in order, then in reverse. Needs a CUDA card and nvcc.
+turns: the builds in order, then in reverse; R1 and R2 also from a CUDA
+graph of 20 calls (``timing.graph_ms``), which leaves out the host's
+time to launch them. Needs a CUDA card and nvcc.
 
 To hold whole street runs of two checkouts against each other, use
 ``chip_smoke.py --deterministic-street`` (``--dense`` for B1 and B2).
@@ -53,7 +57,7 @@ from ..ops import rasterizer_cuda as rc
 from ..ops import resident_cuda as rs
 from . import perf_resident as pr
 from .blocks import street_packed_blocks
-from .timing import card_line, time_ms
+from .timing import card_line, graph_ms, time_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 _BUILD = ROOT / "lvdgs_torch" / "_build" / "ab"
@@ -101,8 +105,10 @@ class Build:
         dense.lvdgs_blend_fwd.argtypes = [p] * (5 + m) + [i] * 3 + [p]
         dense.lvdgs_blend_bwd.argtypes = [p] * (7 + m) + [i] * 3 + [p]
         dense.lvdgs_median_depth.argtypes = [p] * 4 + [i] * 3 + [p]
-        for fn in ("lvdgs_resident_gather", "lvdgs_resident_scatter"):
-            getattr(resident, fn).argtypes = [p] * 3 + [i] * 4 + [p]
+        # lvdgs_resident_scatter_add (the scatter pass alone), where the build exports it
+        self.scatter_add = hasattr(resident, "lvdgs_resident_scatter_add")
+        for fn in ("gather", "scatter") + (("scatter_add",) if self.scatter_add else ()):
+            getattr(resident, f"lvdgs_resident_{fn}").argtypes = [p] * 3 + [i] * 4 + [p]
         for lib, fn in ((packed, "lvdgs_packed_attrs"), (dense, "lvdgs_blend_attrs"),
                         (resident, "lvdgs_resident_attrs")):
             getattr(lib, fn).argtypes = [i, p, p]
@@ -172,8 +178,8 @@ class Build:
         return outs
 
     def resident_call(self, fn: str, idx, src, rows: int, out=None):
-        """R1 (fn "gather", src the table) or R2 ("scatter", src the
-        updates) into out."""
+        """R1 (fn "gather", src the table), R2 ("scatter", src the updates)
+        or R2's scatter pass alone ("scatter_add") into out."""
         G, K, TG = idx.shape
         if out is None:
             out = torch.empty((G * TG if fn == "gather" else rows, pr.NF), device=idx.device)
@@ -203,11 +209,13 @@ def _diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def _times(builds: list[Build], run) -> dict:
-    """{build: [ms in order, ms in reverse]} of run(build), in turns."""
+def _times(builds: list[Build], run, timer=time_ms) -> dict:
+    """{build: [ms in order, ms in reverse]} of run(build), in turns, each
+    taken by `timer` (timing.time_ms, or timing.graph_ms: from a CUDA graph
+    of the launches, no host time)."""
     ms = {b.name: [] for b in builds}
     for b in builds + builds[::-1]:
-        ms[b.name].append(time_ms(lambda b=b: run(b), reps=10, inner=20))
+        ms[b.name].append(timer(lambda b=b: run(b), reps=10, inner=20))
     return ms
 
 
@@ -350,11 +358,27 @@ def ab_resident(builds: list[Build]) -> dict:
             for b in builds:
                 r["max_diff"][b.name] = _diff(outs[b.name], plain) / float(plain.abs().max())
             r["within"] = {b.name: r["max_diff"][b.name] <= pr.SCATTER_TOL for b in builds}
-        r["ms"] = _times(builds, lambda b, fn=fn, src=src: b.resident_call(fn, idx, src, rows, outs[b.name]))
+        run = lambda b, fn=fn, src=src: b.resident_call(fn, idx, src, rows, outs[b.name])  # noqa: E731
+        r["ms"], r["graph_ms"] = _times(builds, run), _times(builds, run, graph_ms)
         report[case] = r
     torch.cuda.synchronize()
     _print(builds, f"resident, {idx.numel()} slots (R1: equal to the plain version too; R2: within "
                    f"{pr.SCATTER_TOL:.0e} of the plain version, relative)", report)
+    # R2's two passes apart, in turns: the zero pass alone (the entry point
+    # with G = 0) and, in the builds that export it, the scatter pass alone
+    # (into the same table, without zeroing)
+    out = torch.empty((rows, pr.NF), device=idx.device)
+    adders = [b for b in builds if b.scatter_add]
+    for case, some, run in (
+            ("R2 zero", builds, lambda b: b.resident_call("scatter", idx[:0], upd, rows, out)),
+            ("R2 scatter", adders, lambda b: b.resident_call("scatter_add", idx, upd, rows, out))):
+        report[case] = {"ms": _times(some, run), "graph_ms": _times(some, run, graph_ms)}
+    for case, r in report.items():
+        print(f"ab [resident] {case}, ms straight from the library / from a CUDA graph: "
+              + "; ".join(f"{b.name} " + ("/".join(f"{t:.4f}" for t in r["ms"][b.name]) + " / "
+                                          + "/".join(f"{t:.4f}" for t in r["graph_ms"][b.name])
+                                          if b.name in r["ms"] else "not exported") for b in builds),
+              flush=True)
     return report
 
 
@@ -366,6 +390,7 @@ def main(argv=None) -> None:
     parser.add_argument("--blocks", type=Path,
                         help="also the final-map blocks that chip_smoke.py --save-blocks wrote")
     parser.add_argument("--out", type=Path, help="write the report as JSON here")
+    parser.add_argument("--resident-only", action="store_true", help="R1 and R2 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("packed_ab needs a CUDA card")
@@ -381,14 +406,17 @@ def main(argv=None) -> None:
                   f"bytes, {a['static_smem']} B static shared, {a['blocks_per_sm']} blocks of "
                   f"{a['threads']} per SM", flush=True)
     dev = torch.device("cuda")
-    (tp, counts), ntx, packed = street_packed_blocks(dev)
-    report["blocks"]["random, dense"] = ab_dense_block(builds, tp, counts, ntx, "random, dense")
     report["blocks"]["resident"] = ab_resident(builds)
+    if args.resident_only:
+        packed, saved = [], None
+    else:
+        (tp, counts), ntx, packed = street_packed_blocks(dev)
+        report["blocks"]["random, dense"] = ab_dense_block(builds, tp, counts, ntx, "random, dense")
+        saved = torch.load(args.blocks) if args.blocks else None
     for bud, _sort, a, G in packed:
         label = f"random, budget {bud}"
         report["blocks"][f"{label}, NB {a[0].shape[0]}"] = ab_block(builds, a, G, ntx, label)
-    if args.blocks:
-        saved = torch.load(args.blocks)
+    if saved:
         for run, (btp, bcounts, bntx) in saved["dense"].items():
             label = f"final map, {run}, dense"
             report["blocks"][label] = ab_dense_block(builds, btp.to(dev), bcounts.to(dev), bntx, label)

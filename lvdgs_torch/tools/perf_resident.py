@@ -12,8 +12,9 @@ scatter their gradients in-kernel, in place of ``_gather_rows`` and the
 ``index_add_`` of its transpose. It prints the card, the kernels' ms and
 ns per row (R1 ``resident_gather``, R2 ``resident_scatter``, each checked
 against its plain version first) through the wrappers, their kernel ms
-(straight from the library on preallocated outputs) and the least time the
-card could take,
+(straight from the library on preallocated outputs, and from a CUDA graph
+of 20 calls, without the host's launch time; R2's zero and scatter passes
+also apart) and the least time the card could take,
 then the library baselines on the same inputs: the ``index_select`` row
 gather (as ``_gather_rows`` calls it), ``embedding_bag`` sum over the
 per-(group, lane) bags and ``index_add_``. The data comes from a
@@ -24,16 +25,21 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from ..ops import resident_cuda as rs
-from .timing import bound_ms, card_line, time_ms
+from .timing import bound_ms, card_line, graph_ms, time_ms
 
 C, NF, T, K, TG = 2**17, rs.NF, 1848, 256, 8
 # R1 is held bit for bit (it adds in the plain version's order); R2 adds
 # with atomics in any order, so it is held to 1e-5 of the table's largest
 # magnitude
 SCATTER_TOL = 1e-5
+# R2's edge shapes (rows, G, K, TG): every slot on one row (full
+# contention); K and the quarter-row count 4 G K TG multiples of neither a
+# thread's 8 quarter rows nor a block's 2048; no group (the zero pass alone)
+SCATTER_EDGES = [(1, 2, 64, 8), (1000, 3, 33, 7), (5000, 7, 301, 9), (10, 0, 16, 8)]
 
 
 def make_inputs(C: int, T: int, K: int, TG: int, device, seed: int = 0):
@@ -46,6 +52,18 @@ def make_inputs(C: int, T: int, K: int, TG: int, device, seed: int = 0):
     fields = torch.randn((C + 1, NF), generator=g, device=device)
     upd = torch.randn((K, G * TG, NF), generator=g, device=device)
     return idx.reshape(G, K, TG), fields, upd.reshape(G, K, TG, NF)
+
+
+def scatter_edge_error(rows: int, G: int, K: int, TG: int, device) -> float:
+    """R2 through its wrapper against its plain version at one edge shape,
+    on inputs made by numpy from a seed: the largest difference over the
+    table's largest magnitude (0 where both tables are zero)."""
+    g = np.random.default_rng(rows + G + K + TG)
+    idx = torch.tensor(g.integers(0, rows, (G, K, TG)), dtype=torch.int32, device=device)
+    upd = torch.tensor(g.normal(size=(G, K, TG, NF)), dtype=torch.float32, device=device)
+    out, ref = rs.resident_scatter(idx, upd, rows), rs.resident_scatter_plain(idx, upd, rows)
+    scale = float(ref.abs().max())
+    return float((out - ref).abs().max()) / scale if scale else float(out.abs().max())
 
 
 def calls(idx, fields, upd) -> dict:
@@ -71,8 +89,10 @@ def calls(idx, fields, upd) -> dict:
 def library_calls(idx, fields, upd) -> dict:
     """R1 and R2 launched straight from their library on preallocated
     outputs, as zero-argument callables: the kernels' own time, without the
-    wrappers' checks and allocation. The index range check is made here,
-    once; CUDA tensors only."""
+    wrappers' checks and allocation; and R2's two passes apart, the zero
+    pass ("scatter zero": the entry point with G = 0) and the scatter pass
+    ("scatter add", into the table without zeroing it). The index range
+    check is made here, once; CUDA tensors only."""
     G, K_, TG_ = idx.shape
     rows = fields.shape[0]
     rs._check_rows(idx, rows)
@@ -80,12 +100,16 @@ def library_calls(idx, fields, upd) -> dict:
     gather_out = torch.empty((G * TG_, NF), device=idx.device)
     scatter_out = torch.empty((rows, NF), device=idx.device)
 
-    def launch(fn, inp, out, name):
+    def launch(fn, inp, out, name, G=G):
         rs._check_launch(fn(idx.data_ptr(), inp.data_ptr(), out.data_ptr(), G, K_, TG_, rows, rs._stream()),
                          name)
 
     return {"gather": lambda: launch(lib.lvdgs_resident_gather, fields, gather_out, "resident_gather"),
-            "scatter": lambda: launch(lib.lvdgs_resident_scatter, upd, scatter_out, "resident_scatter")}
+            "scatter": lambda: launch(lib.lvdgs_resident_scatter, upd, scatter_out, "resident_scatter"),
+            "scatter zero": lambda: launch(lib.lvdgs_resident_scatter, upd, scatter_out, "resident_scatter",
+                                           G=0),
+            "scatter add": lambda: launch(lib.lvdgs_resident_scatter_add, upd, scatter_out,
+                                          "resident_scatter")}
 
 
 def check(idx, fields, upd, ops: dict) -> dict:
@@ -152,6 +176,11 @@ def main(argv=None) -> None:
         b, by = bnd[name]
         print(f"cuda resident {name}:{' ' * (8 - len(name))}{ms:8.4f} ms  ({ms * 1e6 / n_rows:.3f} ns/row)"
               f"  kernel {kernel_ms:.4f} ms  bound {b:.4f} ms ({by})")
+    # a launch of a few microseconds from Python waits on the host: from a
+    # CUDA graph, the device's own time
+    print("cuda resident, from a CUDA graph: "
+          + ", ".join(f"{name} {graph_ms(lib[name], reps=args.reps):.4f} ms"
+                      for name in ("gather", "scatter", "scatter zero", "scatter add")))
     for name in ("index_select gather", "embedding_bag sum", "index_add_ scatter"):
         ms = time_ms(ops[name], reps=args.reps, inner=20)
         print(f"{name}:{' ' * (22 - len(name))}{ms:8.4f} ms  ({ms * 1e6 / n_rows:.3f} ns/row)")

@@ -45,6 +45,34 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, reps: int = 10, inner: int = 20) -> float:
+    """Median over `reps` CUDA-event timings of one replay of a CUDA graph
+    that holds `inner` back-to-back calls of fn(), per call: the device's
+    time for the calls' launches without the host's time to make them,
+    which a kernel of a few microseconds launched from Python through
+    ctypes does not cover (time_ms then measures the host). fn must only
+    launch work on the current stream: no allocation, no sync."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -66,9 +66,8 @@ def test_kernel_sources_are_in_the_package():
                             ("lvdgs_packed_fwd", "lvdgs_packed_bwd", "lvdgs_packed_fwd_bf16",
                              "lvdgs_packed_bwd_bf16")),
         "resident.cu": (("__global__ void __launch_bounds__(32)\nresident_gather_kernel",
-                         "__global__ void zero_kernel",
-                         "__global__ void resident_scatter_kernel"),
-                        ("lvdgs_resident_gather", "lvdgs_resident_scatter")),
+                         "__global__ void __launch_bounds__(SB)\nresident_scatter_kernel"),
+                        ("lvdgs_resident_gather", "lvdgs_resident_scatter", "lvdgs_resident_scatter_add")),
     }
     assert set(rc._SOURCES) == {name[:-3] for name in kernels}
     for name, (globals_, entry_points) in kernels.items():

@@ -21,7 +21,9 @@ resident gather adds in its plain version's order and is held bit for bit,
 also at the edges of its launch shape (one lane or the most per group, one
 slot, none, slot counts that end inside a chunk or past one staging pass);
 the resident scatter adds with atomics, in any order, and is held to 1e-5
-of the table's largest magnitude.
+of the table's largest magnitude, also at the edges of its launch shape
+(one row taking every slot, counts that end inside a thread's or a
+block's share, no group).
 """
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from lvdgs_torch.core.camera import Intrinsics
 from lvdgs_torch.ops import rasterizer as tr
 from lvdgs_torch.ops import rasterizer_cuda as rc
 from lvdgs_torch.ops import resident_cuda as rs
+from lvdgs_torch.tools import perf_resident as pr
 from torch_parity import cuda_device, make_scene_np  # noqa: F401
 
 
@@ -186,6 +189,19 @@ def test_resident_gather_edge_shapes(cuda_device, rows, G, K, TG):
     assert torch.equal(out, rs.resident_gather_plain(idx, fields))
     assert torch.equal(rs.resident_gather(idx, fields), out)
     assert rs.resident_gather.launches.count - before == (2 if G else 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,G,K,TG", pr.SCATTER_EDGES)
+def test_resident_scatter_edge_shapes(cuda_device, rows, G, K, TG):
+    """R2 at the edges of its launch shape (one row taking every slot,
+    counts that end inside a thread's or a block's share, no group), within
+    1e-5 of the table's largest magnitude of its plain version, one launch
+    each; chip_smoke.py runs the same shapes."""
+    before = rs.resident_scatter.launches.count
+    assert pr.scatter_edge_error(rows, G, K, TG, cuda_device) <= pr.SCATTER_TOL
+    assert rs.resident_scatter.launches.count - before == 1
     torch.cuda.synchronize()
 
 

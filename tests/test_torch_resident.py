@@ -156,3 +156,21 @@ def test_wrappers_refuse_indices_outside_the_table(kernel, bad):
             rs.resident_gather(idx, fields)
         else:
             rs.resident_scatter(idx, upd, fields.shape[0])
+
+
+def test_scatter_refuses_an_unaligned_update_table():
+    """R2 loads the updates and adds into the table 16 bytes at a time: an
+    upd that is not 16-byte aligned raises, on every device, before any
+    launch (there is no scalar path)."""
+    idx, _fields, upd = tpr.make_inputs(96, 24, 16, 8, "cpu")
+    flat = torch.empty(upd.numel() + 4)
+    shifted = flat[1:1 + upd.numel()].view(upd.shape)  # contiguous, 4 bytes past an aligned start
+    shifted.copy_(upd)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    before = rs.resident_scatter.launches.count
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rs.resident_scatter(idx, shifted, 97)
+    assert rs.resident_scatter.launches.count == before
+    aligned = flat[4:4 + upd.numel()].view(upd.shape)  # 16 bytes in: accepted
+    aligned.copy_(upd)
+    assert torch.equal(rs.resident_scatter(idx, aligned, 97), rs.resident_scatter_plain(idx, upd, 97))

@@ -462,7 +462,6 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
     asks = [("Performance", "bin_active_bucket", True, "C4"),
-            ("Training", "track_pyramid", True, "A6"),
             ("Results", "global_BA", True, "A7"),
             ("dynamic_filtering", "enabled", True, "A11"),
             ("mast3r", "checkpoint", "weights.pth", "A12"),
