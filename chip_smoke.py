@@ -126,6 +126,9 @@ SOURCES = {"blend_forward": f"{_CSRC}/blend.cu", "blend_backward": f"{_CSRC}/ble
 BF16_PIXEL_ERR, BF16_PSNR, BF16_GRAD_COS = 0.02, 45.0, 0.999
 # limits of the SLAM runs (tests/test_e2e_synthetic.py)
 ATE_LIMIT, PSNR_LIMIT = 0.08, 17.0
+# the GT-mask render's pixels this close to the 0.5 coverage or opacity
+# threshold may flip between B1 and its plain version
+MASK_EDGE = 1e-5
 # the gather transpose against index_add_: both sum each Gaussian's slot
 # gradients in float32, in other orders
 GATHER_TOL = 1e-5
@@ -829,6 +832,174 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     return launches, slam
 
 
+class plain_b1:
+    """Within this block the dense blend forward (B1) runs its plain
+    version: rasterizer_cuda.BlendFunction looks blend_forward up at each
+    call, so the swap reaches every dense render, and no launch is
+    counted."""
+
+    def __enter__(self):
+        from lvdgs_torch.ops import rasterizer_cuda as rc
+
+        self.kernel = rc.blend_forward
+        rc.blend_forward = rc.blend_forward_plain
+
+    def __exit__(self, *exc):
+        from lvdgs_torch.ops import rasterizer_cuda as rc
+
+        rc.blend_forward = self.kernel
+
+
+def check_dynamic_mask(dataset, idx: int) -> None:
+    """Frame `idx`'s GT static mask rendered through B1 against the one
+    rendered through B1's plain version: equal except at pixels whose
+    dynamic coverage or opacity lies within MASK_EDGE of the 0.5 threshold
+    in either render (a rounding there may flip the pixel)."""
+    import torch
+
+    cov_k, op_k = dataset.static_mask_coverage(idx)
+    with plain_b1():
+        cov_p, op_p = dataset.static_mask_coverage(idx)
+    torch.cuda.synchronize()
+    near = torch.zeros_like(op_k, dtype=torch.bool)
+    for x in (cov_k, op_k, cov_p, op_p):
+        near |= (x - 0.5).abs() <= MASK_EDGE
+    mask_k = (cov_k < 0.5) | (op_k < 0.5)
+    mask_p = (cov_p < 0.5) | (op_p < 0.5)
+    differ = int(((mask_k != mask_p) & ~near).sum())
+    print(f"dynamic street, frame {idx}: GT static mask through B1 against its plain version: "
+          f"{int((~mask_k).sum())} dynamic pixels of {mask_k.numel()}, {int(near.sum())} within "
+          f"{MASK_EDGE:.0e} of a 0.5 threshold, {int((mask_k != mask_p).sum())} differ there and "
+          f"{differ} elsewhere {'ok' if differ == 0 else 'DISAGREES'}", flush=True)
+    if differ:
+        fail("the GT static mask rendered through B1 disagrees with its plain version away from the "
+             "thresholds")
+
+
+def run_dynamic(device, frames: int, stop: int) -> dict:
+    """Phase 3: the dynamic street, stopped and resumed. street.yaml with
+    Dataset.dynamic_objects 3, packed as configured, with an
+    OracleLadderMasker (the masking ladder on GT boxes and masks) given to
+    SLAM's constructor, so the masked mapping loss runs. Frames 0 to
+    stop - 1 run in one SLAM, whose state is saved; a fresh SLAM with a
+    fresh masker loads it (its map and Adam state must equal the saved ones
+    bit for bit) and runs to `frames`. Held to ATE < ATE_LIMIT and static
+    PSNR > PSNR_LIMIT; must launch B1, B3, B4 and B5 (counts set to 0 just
+    before the first SLAM runs and read after the second)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lvdgs_torch.core.config import load_config
+    from lvdgs_torch.data.datasets import load_dataset
+    from lvdgs_torch.eval.ate import eval_ate
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.perception import masking
+    from lvdgs_torch.perception.oracle import OracleLadderMasker
+    from lvdgs_torch.slam.system import SLAM
+
+    label = "dynamic"
+    config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
+    config["Dataset"]["dynamic_objects"] = 3
+    n_frames_full = config["Dataset"]["n_frames"]
+    config["Dataset"]["n_frames"] = frames
+    config["Training"]["mono_scale_servo"] = False
+    config["Results"]["eval_rendering"] = True
+    config["Performance"]["synced_timers"] = True
+    cal = config["Dataset"]["Calibration"]
+
+    def build():
+        # the masker's oracle hooks read GT masks from a dataset of their own
+        masker = OracleLadderMasker(load_dataset(None, "", config, device))
+        return SLAM(config, save_dir=None, device=device, masker=masker), masker
+
+    first, masker = build()
+    cv2 = getattr(masking.cv2, "__version__", None)
+    print(f"{label} path: street.yaml at {cal['width']}x{cal['height']} with dynamic_objects 3, "
+          f"{len(first.dataset._dynamic)} moving cars, packed budgets tracking "
+          f"{first.rcfg_track.slot_budget_per_tile}, mapping {first.rcfg_map.slot_budget_per_tile}, "
+          f"OracleLadderMasker; masked mapping loss {first.mcfg.use_masked_loss}; optical flow "
+          f"{'runs (cv2 ' + cv2 + ')' if masker.use_flow else 'off (no cv2)'}; stop after frame "
+          f"{stop - 1}, resume to frame {frames - 1}", flush=True)
+    if frames != n_frames_full:
+        print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
+    if not (first.mcfg.use_masked_loss and first.rcfg_track.use_packed and first.rcfg_map.use_packed):
+        fail(f"the {label} run does not render or mask as asked")
+    check_dynamic_mask(first.dataset, 0)
+
+    for w in rc.KERNEL_WRAPPERS:
+        w.launches.reset()
+    t0 = time.perf_counter()
+    first.do_eval_rendering = False
+    first.run(n_frames=stop, progress=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="lvdgs_ckpt_")
+    path = os.path.join(ckpt_dir, "checkpoint")
+    torch.cuda.synchronize()
+    t_save = time.perf_counter()
+    first.save_state(path)
+    save_s = time.perf_counter() - t_save
+    size = os.path.getsize(path)
+    second, _ = build()
+    t_load = time.perf_counter()
+    second.load_state(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_load
+    saved = [("map " + f, getattr(first.gmap, f), getattr(second.gmap, f))
+             for f in first.gmap.__dataclass_fields__]
+    saved += [(f"adam {part} {k}", getattr(first.opt_state, part)[k], getattr(second.opt_state, part)[k])
+              for part in ("m", "v") for k in first.opt_state.m]
+    differ = [name for name, a, b in saved if not torch.equal(a, b)]
+    same_count = first.opt_state.count == second.opt_state.count
+    print(f"{label} path: checkpoint after frame {stop - 1}: {size} bytes, saved in {save_s:.3f} s, "
+          f"loaded in {load_s:.3f} s; map and Adam state, {len(saved)} tensors: {len(differ)} differ "
+          f"{differ[:6]}, Adam step {'equal' if same_count else 'DIFFERS'}", flush=True)
+    if differ or not same_count:
+        fail(f"the {label} run's loaded map or Adam state differs from the saved one")
+    first_timers = first.timer.summary()
+    del first
+    results = second.run(progress=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
+    os.remove(path)
+    os.rmdir(ckpt_dir)
+
+    ate = eval_ate(second.frames, second.kf_indices, None, frames, final=True, monocular=True)
+    psnr = results.get("mean_psnr", float("nan"))
+    psnr_s = results.get("mean_psnr_static", float("nan"))
+    n_after_init = len(second.kf_indices) - 1
+    print(f"{label} path: {results['n_frames']} frames, {results['n_keyframes']} keyframes "
+          f"({n_after_init} after init), {second.gmap.num_active} active Gaussians, {wall:.1f} s with "
+          f"the save and the load ({results['fps']:.4f} fps over the resumed frames), ATE RMSE {ate:.4f} "
+          f"m, PSNR {psnr:.3f} dB, static PSNR {psnr_s:.3f} dB, static SSIM "
+          f"{results.get('mean_ssim_static', float('nan')):.4f} over {results.get('n_eval_frames', 0)} "
+          f"frames", flush=True)
+    for part, timers in (("first run", first_timers), ("resumed run", results["timers"])):
+        for name, t in timers.items():
+            print(f"{label} timer {name} ({part}): {t['total_s']:.3f} s total, {t['count']} calls, "
+                  f"{t['mean_ms']:.2f} ms mean", flush=True)
+    shares = {k: round(float(np.mean(second.frames[k]["static_mask"])), 4) for k in second.kf_indices}
+    print(f"{label} path: keyframes {second.kf_indices}, static share per keyframe {shares}", flush=True)
+    print(f"launches on the {label} path: {json.dumps(launches)}", flush=True)
+    if n_after_init < 2:
+        fail(f"{label} path: only {n_after_init} keyframes after init; the path needs at least 2")
+    for name in ("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_backward"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched on the {label} path")
+    poses = np.stack([np.concatenate([np.ravel(f["R"]), np.ravel(f["T"])]) for f in second.frames.values()])
+    if not np.isfinite(poses).all():
+        fail(f"{label} path: non-finite pose")
+    for k, v in second.gmap.params().items():
+        if not bool(torch.isfinite(v[second.gmap.active]).all()):
+            fail(f"{label} path: non-finite map field {k}")
+    if not ate < ATE_LIMIT:
+        fail(f"{label} path: ATE RMSE {ate:.4f} m is not below {ATE_LIMIT}")
+    if not psnr_s > PSNR_LIMIT:
+        fail(f"{label} path: static PSNR {psnr_s:.3f} dB is not above {PSNR_LIMIT}")
+    return launches
+
+
 def deterministic_street(device, frames: int, out: str, against: str | None, packed: bool) -> None:
     """The float32 street run, packed or dense, under
     torch.use_deterministic_algorithms(True), where it repeats bit for bit:
@@ -1011,6 +1182,10 @@ def main() -> None:
             dense_slam = slam
         del slam
         torch.cuda.empty_cache()
+    # the dynamic street, stopped after half its frames and resumed
+    for name, n in run_dynamic(device, args.frames, args.frames // 2).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
     # the same checks on the slots the packed and the dense path blend
     dense_blocks = {"packed run": main_path_dense_block(packed_slam),
                     "dense run": main_path_dense_block(dense_slam)}

@@ -1,8 +1,11 @@
 """Entry point: python -m lvdgs_torch --config configs/mono/synthetic/base_config.yaml
 
-Loads the layered YAML config, builds the dataset, Gaussian map and SLAM
-system on the chosen device (CUDA by default), runs the SLAM loop, then
-colour refinement and the final evaluation.
+Loads the layered YAML config, builds the dynamic-object masker
+(`dynamic_filtering`), the dataset, Gaussian map and SLAM system on the
+chosen device (CUDA by default), runs the SLAM loop, then colour
+refinement and the final evaluation. `--checkpoint-every N` saves the
+state to <save-dir>/checkpoint every N frames; `--resume FILE` continues a
+run from such a file.
 """
 import argparse
 import os
@@ -19,10 +22,15 @@ def main(argv=None):
                         help="torch device (default: cuda; 'cpu' runs the plain kernels)")
     parser.add_argument("--no-color-refinement", action="store_true")
     parser.add_argument("--no-eval-rendering", action="store_true")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="resume from a checkpoint file (<save-dir>/checkpoint of an earlier run)")
+    parser.add_argument("--checkpoint-every", type=int, default=None,
+                        help="save a resumable checkpoint every N frames")
     args = parser.parse_args(argv)
 
     from lvdgs_torch.core.config import load_config
     from lvdgs_torch.core.log import Log
+    from lvdgs_torch.perception import build_masker
     from lvdgs_torch.slam.system import SLAM
 
     config = load_config(args.config)
@@ -32,12 +40,15 @@ def main(argv=None):
         save_dir = os.path.join(config.get("Results", {}).get("save_dir", "results"), stamp)
     os.makedirs(save_dir, exist_ok=True)
 
-    slam = SLAM(config, save_dir=save_dir, device=args.device)
+    slam = SLAM(config, save_dir=save_dir, device=args.device, masker=build_masker(config))
     if args.no_color_refinement:
         slam.do_color_refinement = False
     if args.no_eval_rendering:
         slam.do_eval_rendering = False
-    results = slam.run(n_frames=args.n_frames)
+    if args.resume:
+        slam.load_state(args.resume)
+        Log(f"Resumed from {args.resume} at frame {slam.frames_processed}")
+    results = slam.run(n_frames=args.n_frames, checkpoint_every=args.checkpoint_every)
     Log(f"Results: {results}", tag="Eval")
     return results
 

@@ -2,8 +2,9 @@
 
 Port of ``lvdgs_tpu/core/losses.py``: Scharr image gradients and the edge
 mask that gates the tracking loss, the exposure-compensated tracking and
-mapping losses, the mask-aware mapping loss, L1 / SSIM / PSNR, and the
-median depth of opaque pixels. Masked means use sum/count, as there.
+mapping losses, the mask-aware mapping loss, L1 / SSIM / PSNR, the
+loss-mask coverage report, and the median depth of opaque pixels. Masked
+means use sum/count, as there.
 """
 from __future__ import annotations
 
@@ -239,6 +240,35 @@ def isotropic_reg(scaling: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     dev = (scaling - scaling.mean(dim=1, keepdim=True)).abs()
     m = active.to(scaling.dtype)[:, None]
     return (dev * m).sum() / (m.sum() * scaling.shape[1] + 1e-8)
+
+
+def debug_loss_mask_coverage(cam: Camera, rgb_boundary_threshold: float = 0.01,
+                             verbose: bool = False) -> dict:
+    """What share of the pixels each mask stage keeps in the tracking loss:
+    valid RGB, the edge mask, both, and with a static mask the static share
+    and all three together. The original LVD-GS calls this but never
+    defines it; the reference package implements it as intended."""
+    total = cam.image.shape[1] * cam.image.shape[2]
+    rgb_mask = cam.image.sum(dim=0) > rgb_boundary_threshold
+
+    def share(m):
+        return float(m.to(torch.float32).mean())
+
+    stats = {
+        "rgb_valid": share(rgb_mask),
+        "grad_mask": share(cam.grad_mask),
+        "combined": share(rgb_mask & cam.grad_mask),
+        "total_pixels": int(total),
+    }
+    if cam.has_static_mask:
+        stats["static"] = share(cam.static_mask)
+        stats["combined_static"] = share(rgb_mask & cam.grad_mask & cam.static_mask)
+    if verbose:
+        from .log import Log
+
+        Log("loss mask coverage: "
+            + ", ".join(f"{k}={v:.1%}" for k, v in stats.items() if isinstance(v, float)))
+    return stats
 
 
 # ----------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 Port of ``lvdgs_tpu/data/datasets.py``. Directory conventions are those of
 the reference package (KITTI, Waymo, Replica, TUM, dl3dv parsers, copied as
-NumPy code) plus the procedural synthetic scenes (``cloud`` and ``street``),
-whose frames are rendered by this package's own rasterizer on the
-dataset's device.
+NumPy code) plus the procedural synthetic scenes (``cloud`` and ``street``,
+the street optionally with moving cars and their GT static mask), whose
+frames are rendered by this package's own rasterizer on the dataset's
+device.
 
 ``__getitem__`` returns (image (3, H, W) float32 in [0, 1], depth (H, W) or
 None, w2c pose (4, 4) float32 NumPy, mono_depth (H, W) or None). File
@@ -272,6 +273,112 @@ def _tex(x, z, seed=0.0):
     return 0.5 + 0.5 * np.tanh(v)
 
 
+def _car_cluster(rng, x0, y_ground, z0, heading, tint, length=4.2, width=1.8,
+                 height=1.5, sp=0.18):
+    """Textured box-car surfel cluster (body sides/roof/ends + dark window
+    band + wheels), centered at (x0, ·, z0) on the ground plane, facing
+    `heading` (+1 = +z). Returns (means, colors, log_scales) numpy arrays."""
+    means, colors, scales = [], [], []
+    hl, hw = length / 2.0, width / 2.0
+    y_top = y_ground - height  # y is down; roof above ground
+    ys = np.arange(y_top, y_ground + 1e-6, sp)
+    zs = np.arange(-hl, hl + 1e-6, sp)
+    xs = np.arange(-hw, hw + 1e-6, sp)
+
+    def _panel(px, py, pz, normal_axis):
+        n = px.size
+        tex = 0.75 + 0.25 * _tex(py * 3.1 + pz * 2.3, pz * 4.7, 31.0)
+        col = np.asarray(tint)[None] * tex[:, None]
+        # window band: dark glass on the upper third of the body
+        win = (py < y_top + 0.45 * height) & (py > y_top + 0.08 * height)
+        col[win] = np.array([0.10, 0.12, 0.15]) * (0.8 + 0.4 * tex[win, None])
+        s = [0.12, 0.12, 0.12]
+        s[normal_axis] = 0.015  # thin along the panel normal
+        means.append(np.stack([px, py, pz], 1))
+        colors.append(col)
+        scales.append(np.tile(np.log(s), (n, 1)))
+
+    # side panels (x = ±hw)
+    for sx in (-hw, hw):
+        py, pz = np.meshgrid(ys, zs)
+        py, pz = py.ravel(), pz.ravel()
+        _panel(np.full_like(py, sx), py, pz, 0)
+    # front/back panels (z = ±hl)
+    for sz in (-hl, hl):
+        py, px = np.meshgrid(ys, xs)
+        py, px = py.ravel(), px.ravel()
+        _panel(px, py, np.full_like(py, sz), 2)
+    # roof
+    px, pz = np.meshgrid(xs, zs)
+    px, pz = px.ravel(), pz.ravel()
+    _panel(px, np.full_like(px, y_top), pz, 1)
+    # wheels: dark blobs at the four corners
+    for wz in (-hl * 0.62, hl * 0.62):
+        for wx in (-hw, hw):
+            means.append(np.array([[wx, y_ground - 0.3, wz]], np.float32))
+            colors.append(np.array([[0.05, 0.05, 0.06]], np.float32))
+            scales.append(np.log([[0.08, 0.3, 0.3]]).astype(np.float32))
+
+    m = np.concatenate(means).astype(np.float32)
+    c = np.concatenate(colors).astype(np.float32)
+    s = np.concatenate(scales).astype(np.float32)
+    if heading < 0:  # flip to face -z
+        m[:, 2] = -m[:, 2]
+    m[:, 0] += x0
+    m[:, 2] += z0
+    m[:, :2] += rng.normal(0, 0.01, (m.shape[0], 2))
+    return m, np.clip(c, 0.0, 1.0), s
+
+
+def _street_dynamic_objects(rng, scfg):
+    """Moving objects of the dynamic street scene (Dataset.dynamic_objects):
+    car clusters on linear paths, the objects the masking ladder exists to
+    mask. Returns a list of {means, colors, log_scales, vel} dicts; `vel` is
+    metres per frame in world space. The same draws from `rng` as the
+    reference package's, so both build the same world."""
+    n_obj = int(scfg.get("dynamic_objects", 0))
+    if n_obj <= 0:
+        return []
+    step = scfg.get("step", 0.5)
+    objs = []
+    # archetypes: oncoming cars in the left lane (large image-space motion,
+    # pass close to the camera) and a slower leading car ahead in our lane.
+    # Overridable via Dataset.dynamic_archetypes: [[x, z0, heading, vz_per_
+    # frame, r, g, b], ...] so tests can stage close encounters in few frames.
+    archetypes = scfg.get("dynamic_archetypes") or [
+        # (lane x, z at t=0, heading, vel z m/frame, tint)
+        # Ordered transient-first: oncoming cars pass and exit (the
+        # reference's demonstrable regime); the LEADING cars (ahead in our
+        # lane, never exiting) permanently occlude the center-forward
+        # corridor a masked run can then never seed — at 90 frames that
+        # unobserved hole destabilises the masked run's window — so they
+        # come last and only enter at dynamic_objects >= 3.
+        (-1.75, 42.0, -1.0, -0.9 * step / 0.5, (0.75, 0.15, 0.12)),
+        (-1.75, 80.0, -1.0, -1.1 * step / 0.5, (0.85, 0.80, 0.20)),
+        (+1.75, 14.0, +1.0, +0.55 * step / 0.5, (0.15, 0.25, 0.70)),
+        (+1.75, 45.0, +1.0, +0.5 * step / 0.5, (0.18, 0.55, 0.25)),
+    ]
+    archetypes = [
+        (a[0], a[1], a[2], a[3],
+         tuple(a[4]) if len(a) == 5 else tuple(a[4:7]),
+         tuple(a[7:10]) if len(a) >= 10 else (4.2, 1.8, 1.5))
+        for a in archetypes
+    ]
+    for i in range(min(n_obj, len(archetypes))):
+        x0, z0, heading, vz, tint, (length, width, height) = archetypes[i]
+        m, c, s = _car_cluster(rng, x0, 1.5, z0, heading, np.asarray(tint),
+                               length=length, width=width, height=height)
+        objs.append(
+            {
+                "means": m,
+                "colors": c,
+                "log_scales": s,
+                "vel": np.array([0.0, 0.0, vz], np.float32),
+            }
+        )
+    return objs
+
+
 def _street_scene(rng, scfg):
     """Structured, textured street world for the real-data-faithful bench
     (VERDICT r2 #4): ground plane with lane markings, building facades with
@@ -414,14 +521,45 @@ class SyntheticDataset:
         self.has_depth = True
         self.depth_scale = 1.0
         self.num_imgs = scfg.get("n_frames", 30)
-        if int(scfg.get("dynamic_objects", 0)) > 0:
-            raise NotImplementedError(
-                "synthetic dynamic objects belong to dynamic filtering (ROADMAP A11)"
-            )
 
         rng = np.random.default_rng(scfg.get("seed", 0))
+        self._dynamic = []  # moving-object specs (street scene only)
         if scfg.get("scene", "cloud") == "street":
             params_np = _street_scene(rng, scfg)
+            n_static = params_np["means"].shape[0]
+            # moving objects (Dataset.dynamic_objects > 0) are appended to the
+            # parameter arrays, so every frame renders the same shapes; a
+            # frame moves only their means
+            dyns = _street_dynamic_objects(rng, scfg)
+            if dyns:
+                dm = np.concatenate([d["means"] for d in dyns])
+                nd = dm.shape[0]
+                params_np = {
+                    "means": np.concatenate([params_np["means"], dm]),
+                    "features_dc": np.concatenate(
+                        [params_np["features_dc"],
+                         (np.concatenate([d["colors"] for d in dyns]) - 0.5) / SH_C0]),
+                    "log_scales": np.concatenate(
+                        [params_np["log_scales"], np.concatenate([d["log_scales"] for d in dyns])]),
+                    "quats": np.concatenate(
+                        [params_np["quats"], np.tile(np.array([1, 0, 0, 0], np.float32), (nd, 1))]),
+                    "logit_opacities": np.concatenate(
+                        [params_np["logit_opacities"], np.full((nd,), 4.0, np.float32)]),
+                }
+                f32 = dict(dtype=torch.float32, device=self.device)
+                self._dyn_base_means = torch.as_tensor(dm, **f32)
+                self._dyn_vel = torch.as_tensor(
+                    np.concatenate([np.tile(d["vel"], (d["means"].shape[0], 1)) for d in dyns]), **f32)
+                self._dynamic = dyns
+                # marker colours for the GT-mask render: dynamic Gaussians
+                # render 1, static ones 0, with the same geometry and
+                # opacity, so the blended marker is each pixel's dynamic
+                # coverage, occlusion included (threshold 0.5)
+                marker = np.zeros((params_np["means"].shape[0],), np.float32)
+                marker[n_static:] = 1.0
+                self._marker_dc = torch.as_tensor(
+                    np.tile(((marker - 0.5) / SH_C0)[:, None], (1, 3)), **f32)
+            self._n_static = n_static
         else:
             n = scfg.get("n_gaussians", 4000)
             spread = scfg.get("spread", 4.0)
@@ -479,12 +617,36 @@ class SyntheticDataset:
         """Deterministic per-frame noise source (one stream per quantity)."""
         return torch.Generator(device=self.device).manual_seed(stream * 1_000_003 + idx)
 
+    def frame_params(self, idx: int) -> dict:
+        """The scene's parameters at frame `idx`: the moving objects'
+        means advanced by `idx` frames of their velocity."""
+        if not self._dynamic:
+            return self._params
+        moved = self._dyn_base_means + float(idx) * self._dyn_vel
+        return {**self._params,
+                "means": torch.cat([self._params["means"][: self._n_static], moved])}
+
+    @torch.no_grad()
+    def static_mask_coverage(self, idx: int):
+        """(cov, opacity), each (H, W): frame `idx` re-rendered with the
+        marker colours, cov the opacity-normalised marker (each pixel's
+        dynamic coverage, occlusion included) and the render's opacity."""
+        pose = self.poses[idx]
+        mout = rasterize(
+            {**self.frame_params(idx), "features_dc": self._marker_dc}, self._active,
+            torch.as_tensor(pose[:3, :3], device=self.device),
+            torch.as_tensor(pose[:3, 3], device=self.device),
+            self.intrinsics, self._rcfg, need_n_touched=False,
+        )
+        op = mout.opacity[0]
+        return mout.image[0] / torch.clamp(op, min=1e-6), op
+
     @torch.no_grad()
     def __getitem__(self, idx):
         if idx not in self._cache:
             pose = self.poses[idx]
             out = rasterize(
-                self._params, self._active,
+                self.frame_params(idx), self._active,
                 torch.as_tensor(pose[:3, :3], device=self.device),
                 torch.as_tensor(pose[:3, 3], device=self.device),
                 self.intrinsics, self._rcfg, need_n_touched=False,
@@ -510,9 +672,25 @@ class SyntheticDataset:
                     1.0 + self._mono_noise * torch.randn(depth.shape, generator=g, device=self.device)
                 )
                 mono = torch.clamp(mono, min=0.0)
-            self._cache[idx] = (image, depth, mono)
-        image, depth, mono = self._cache[idx]
+            static_mask = None
+            if self._dynamic:
+                # a pixel is dynamic where its dynamic coverage reaches 0.5
+                # and it is covered (opacity at least 0.5)
+                cov, op = self.static_mask_coverage(idx)
+                static_mask = (cov < 0.5) | (op < 0.5)
+            self._cache[idx] = (image, depth, mono, static_mask)
+        image, depth, mono, _ = self._cache[idx]
         return image, depth, self.poses[idx], mono
+
+    def get_gt_static_mask(self, idx):
+        """(H, W) bool GT static mask (True = static) of a dynamic street
+        frame, on the dataset's device; None for a scene without moving
+        objects. The oracle maskers and the static-region metrics read it."""
+        if not self._dynamic:
+            return None
+        if idx not in self._cache:
+            self.__getitem__(idx)
+        return self._cache[idx][3]
 
 
 def load_dataset(args, path, config, device):

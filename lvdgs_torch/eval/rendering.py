@@ -1,7 +1,10 @@
 """Rendering-quality evaluation: PSNR / SSIM over every non-keyframe frame
-rendered from its estimated pose (PyTorch port of
-``lvdgs_tpu/eval/rendering.py``; the static-region variants, LPIPS and the
-per-frame panels are left to the dynamic-scene slice)."""
+rendered from its estimated pose, and over its static region where the
+frame has a static mask (PyTorch port of ``lvdgs_tpu/eval/rendering.py``).
+
+LPIPS follows the reference's `_lpips`: without AlexNet weights the metric
+is unavailable and its key is left out; none are in the repo, so the port
+reports none. The per-frame panels wait for ROADMAP A14."""
 from __future__ import annotations
 
 import json
@@ -32,12 +35,18 @@ def eval_rendering(
 ) -> Dict[str, float]:
     """Mean PSNR (over valid-RGB pixels) and SSIM of every non-keyframe
     frame rendered from its estimated pose; frames with a non-finite pose
-    or score are counted and excluded."""
+    or score are counted and excluded. Where a frame has a static mask,
+    mean_psnr_static and mean_ssim_static score the render and the GT with
+    the dynamic pixels set to the background colour: the dataset's GT
+    static mask where it has one (so masked and unmasked runs are scored on
+    the same pixels), else the frame record's own mask."""
     kf_set = set(kf_indices or [])
     psnrs, ssims = [], []
+    psnrs_s, ssims_s = [], []
     nonfinite_frames: List[int] = []
     params = gmap.params()
     dev = gmap.device
+    bg = torch.full((3, 1, 1), 1.0 if rcfg.white_background else 0.0, dtype=torch.float32, device=dev)
     end = len(dataset) if max_frames is None else min(len(dataset), max_frames)
     for idx in range(end):
         if idx in kf_set or idx not in frames:
@@ -67,6 +76,21 @@ def eval_rendering(
         psnrs.append(p)
         ssims.append(s)
 
+        static = f.get("static_mask")
+        if hasattr(dataset, "get_gt_static_mask"):
+            gt_static = dataset.get_gt_static_mask(idx)
+            if gt_static is not None:
+                static = gt_static
+        if static is not None:
+            sm = torch.as_tensor(static, device=dev)[None]
+            render_s = torch.where(sm, render, bg)
+            gt_s = torch.where(sm, gt, bg)
+            ps = float(psnr_fn(render_s, gt_s, valid & sm))
+            ss = float(ssim_fn(render_s, gt_s))
+            if np.isfinite(ps) and np.isfinite(ss):  # an empty static region gives NaN
+                psnrs_s.append(ps)
+                ssims_s.append(ss)
+
     result = {
         "mean_psnr": float(np.mean(psnrs)) if psnrs else 0.0,
         "mean_ssim": float(np.mean(ssims)) if ssims else 0.0,
@@ -75,6 +99,9 @@ def eval_rendering(
     if nonfinite_frames:
         result["n_nonfinite_frames"] = len(nonfinite_frames)
         result["nonfinite_frames"] = nonfinite_frames[:20]
+    if psnrs_s:
+        result["mean_psnr_static"] = float(np.mean(psnrs_s))
+        result["mean_ssim_static"] = float(np.mean(ssims_s))
     Log(
         f"Rendering eval [{iteration}]: PSNR {result['mean_psnr']:.2f} dB, "
         f"SSIM {result['mean_ssim']:.4f} ({result['n_eval_frames']} frames)",

@@ -12,7 +12,8 @@ All control flow here depends only on host integers (iteration counters,
 window slots, the keyframe count), so the loop never waits on the device.
 Cameras whose loss weight is zero (padded window slots, absent replay
 keyframes) contribute exactly nothing in the reference; they are skipped
-here instead of rendered.
+here instead of rendered. With `use_masked_loss` (SLAM built with a
+masker) window cameras that carry a static mask take the mask-aware loss.
 
 Under saturation feedback (packed renders, RenderConfig.saturation_feedback)
 the window cameras' bins come from prepare_bins_with_touched once per
@@ -30,10 +31,10 @@ import torch
 
 from ..core import lie
 from ..core.camera import Intrinsics
-from ..core.losses import isotropic_reg, l1_loss, ssim
+from ..core.losses import isotropic_reg, l1_loss, loss_mapping_masked, ssim
 from ..gaussian import model as gm
 from ..ops.rasterizer import RenderConfig, prepare_bins, prepare_bins_with_touched, rasterize
-from .state import KeyframeBuffer
+from .state import KeyframeBuffer, camera_from_slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,9 @@ class MappingConfig:
     densify_from_iter: int = 500
     monocular: bool = True
     up_pose: bool = True
+    # the dynamic-mask-aware loss of window cameras that carry a static
+    # mask; the reference sets it when SLAM is given a masker
+    use_masked_loss: bool = False
     rebin_every: int = 20
     bin_margin: float = 16.0
 
@@ -160,6 +164,15 @@ def mapping_run(
         return image * mr, mr, mono[None] * md, md
 
     window_targets = {i: targets(safe_slots[i]) for i in valid_idx}
+    # window cameras with a static mask take the masked loss (L1 + DSSIM on
+    # the static pixels, no exposure, and the masked depth term); replay
+    # cameras and cameras without a mask take the plain one
+    masked_cams = {}
+    if mcfg.use_masked_loss and not mcfg.initialization and valid_idx:
+        has_static = kfbuf.has_static[vslots].tolist()
+        masked_cams = {i: camera_from_slot(kfbuf, safe_slots[i])
+                       for i, h in zip(valid_idx, has_static) if h}
+    bg = torch.full((3,), 1.0 if rcfg.white_background else 0.0, dtype=torch.float32, device=dev)
     use_fb = rcfg.use_packed and rcfg.saturation_feedback
 
     while local_it < local_end:
@@ -226,10 +239,17 @@ def mapping_run(
                     weight = replay_w[j]
                 out = rasterize(params, active, R, T, intr, rcfg, vs_offset=vs,
                                 bins=bins[(kind, j)], need_n_touched=need_nt)
-                image = out.image if mcfg.initialization else torch.exp(ab[0]) * out.image + ab[1]
-                li = mcfg.alpha * (image * mr - gt_m).abs().mean() + (1 - mcfg.alpha) * (
-                    out.depth * md - mono_m
-                ).abs().mean()
+                if kind == "w" and j in masked_cams:
+                    # the window camera's exposure gets no gradient here, as
+                    # in the reference
+                    li = loss_mapping_masked(out.image, out.depth, masked_cams[j], bg,
+                                             lambda_dssim=mcfg.lambda_dssim,
+                                             depth_lambda=mcfg.depth_lambda)
+                else:
+                    image = out.image if mcfg.initialization else torch.exp(ab[0]) * out.image + ab[1]
+                    li = mcfg.alpha * (image * mr - gt_m).abs().mean() + (1 - mcfg.alpha) * (
+                        out.depth * md - mono_m
+                    ).abs().mean()
                 total = total + li * weight
                 vss[(kind, j)] = vs
                 vis_l[(kind, j)] = out.visibility_filter

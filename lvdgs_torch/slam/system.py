@@ -16,11 +16,19 @@ render, median-depth fusion) stay dense. Performance.packed_*_budget and
 saturation_feedback[_mapping] override the defaults; Performance.blend_bf16
 runs the packed tracking and mapping renders' weight math in bfloat16.
 
+Dynamic scenes: a `masker` (``lvdgs_torch.perception``) gives each frame a
+host-side static mask, sent to the device once per frame; it gates
+seeding (dilated), the window cameras' mapping loss (`use_masked_loss`,
+decided at construction as in the reference), the keyframe policy and the
+static-region metrics. `save_state`/`load_state` write and read the
+reference's resumable key set in one `torch.save` file, and
+`run(checkpoint_every=N)` saves it every N frames.
+
 Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: the active-prefix binning bucket (C4), global BA and
-checkpoints (A7/A8), dynamic filtering (A11), MASt3R priors (A12), the GUI
-and the visualisation panels (A14) and data-parallel mapping (A15).
+ROADMAP item: the active-prefix binning bucket (C4), global BA (A7), MASt3R
+priors and the pose/depth/scale prior hooks (A12), the GUI and the
+visualisation panels (A14) and data-parallel mapping (A15).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
@@ -42,6 +51,7 @@ from ..data.prefetch import PrefetchLoader
 from ..eval.ate import eval_ate
 from ..eval.rendering import eval_rendering
 from ..gaussian import model as gm
+from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.ply import save_gaussians_ply
 from ..ops.rasterizer import RenderConfig, rasterize_median_depth
 from . import state as slam_state
@@ -62,6 +72,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _dilate_mask(mask: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Binary dilation by max-pooling with the reference's symmetric
+    padding of kernel // 2 (an even kernel grows the mask by a row and a
+    column, as the reference's reduce_window does)."""
+    pad = kernel // 2
+    return F.max_pool2d(mask.to(torch.float32)[None, None], kernel, stride=1, padding=pad)[0, 0] > 0.5
+
+
 def _refuse_unported(config: dict) -> None:
     perf = config.get("Performance", {}) or {}
     tr = config.get("Training", {}) or {}
@@ -76,8 +94,6 @@ def _refuse_unported(config: dict) -> None:
         # only an explicit non-zero value: the reference's default of 1
         # writes best-effort panels that the port does not write yet
         (res.get("viz_every", 0), "the eval visualisation panels, Results.viz_every (ROADMAP A14)"),
-        ((config.get("dynamic_filtering", {}) or {}).get("enabled", False),
-         "dynamic filtering (ROADMAP A11)"),
         ((config.get("mast3r", {}) or {}).get("checkpoint"), "MASt3R priors (ROADMAP A12)"),
     ]
     for asked, what in checks:
@@ -88,7 +104,7 @@ def _refuse_unported(config: dict) -> None:
 class SLAM:
     """End-to-end monocular Gaussian-splatting SLAM."""
 
-    def __init__(self, config: dict, save_dir: Optional[str] = None, device=None):
+    def __init__(self, config: dict, save_dir: Optional[str] = None, device=None, masker=None):
         _refuse_unported(config)
         self.device = resolve_device(device)
         self.config = config
@@ -196,6 +212,9 @@ class SLAM:
             gaussian_reset=tr.get("gaussian_reset", 2001),
             size_threshold=tr.get("size_threshold", 20),
             monocular=self.monocular,
+            # decided here, as in the reference: a masker assigned after
+            # construction gates seeding and the metrics but not this loss
+            use_masked_loss=masker is not None,
             rebin_every=perf.get("rebin_every", 20),
             bin_margin=perf.get("bin_margin", 16.0),
         )
@@ -270,6 +289,10 @@ class SLAM:
         self.do_color_refinement = res.get("color_refinement", True)
         self.color_refinement_iters = res.get("color_refinement_iters", 26000)
         self.do_eval_rendering = res.get("eval_rendering", True)
+        # dynamic-object masker: get_static_mask(image (3, H, W) host array,
+        # frame_idx) -> (H, W) bool host array, True = static
+        self.masker = masker
+        self._static_np: Dict[int, np.ndarray] = {}  # the last frame's host mask
 
         # mutable state
         self.last_sent = 0  # idle-mapping counter (threaded mode)
@@ -327,6 +350,8 @@ class SLAM:
         return res
 
     def _store_frame_record(self, idx: int, packed: np.ndarray) -> None:
+        # the frame's static mask, as the masker gave it on the host
+        static = self._static_np.get(idx) if self.masker is not None else None
         self.frames[idx] = {
             "R": packed[0:9].reshape(3, 3),
             "T": packed[9:12],
@@ -334,7 +359,7 @@ class SLAM:
             "T_gt": packed[21:24],
             "exposure_a": float(packed[24]),
             "exposure_b": float(packed[25]),
-            "static_mask": None,
+            "static_mask": static,
         }
 
     @staticmethod
@@ -363,7 +388,7 @@ class SLAM:
             gt_T=torch.as_tensor(np.asarray(pose[:3, 3]), **f32),
             depth=None if depth is None else torch.as_tensor(depth, **f32),
         )
-        return cam.replace(
+        cam = cam.replace(
             mono_depth=self._mono_depth_for(depth, mono),
             grad_mask=compute_grad_mask(
                 cam.image,
@@ -371,6 +396,16 @@ class SLAM:
                 self.config["Dataset"].get("type", "KITTI"),
             ),
         )
+        if self.masker is not None:
+            # a masker with its own host-side images (IntervalMasker with an
+            # image_provider) skips the frame's transfer to the host
+            img_np = (None if getattr(self.masker, "provides_images", False)
+                      else cam.image.cpu().numpy())
+            static = np.asarray(self.masker.get_static_mask(img_np, frame_idx=idx), bool)
+            self._static_np = {idx: static}
+            cam = cam.replace(static_mask=torch.as_tensor(static, device=self.device),
+                              has_static_mask=True)
+        return cam
 
     def _map_scale_estimate(self) -> float:
         """Map scale relative to GT for the sim_prior pose seed: the last
@@ -460,6 +495,23 @@ class SLAM:
         with rescaled mono_depth)."""
         rgb_thr = self.config["Training"].get("rgb_boundary_threshold", 0.01)
         valid_rgb = cam.image.sum(dim=0) > rgb_thr
+        if self.masker is not None and cam.has_static_mask:
+            # seed only away from dynamic objects: the original's kernels
+            # (9 on the first frame, 7 after) suit KITTI-size frames, and
+            # Training.mask_dilation rescales them for small ones
+            base = self.config["Training"].get("mask_dilation", 7)
+            expanded_dynamic = _dilate_mask(~cam.static_mask, base + 2 if idx == 0 else base)
+            valid_rgb = valid_rgb & ~expanded_dynamic
+            # the original's graded static-region warnings (keyframes only)
+            ratio = float((~expanded_dynamic).to(torch.float32).mean())
+            if idx == 0 and ratio < 0.15:
+                Log(f"CRITICAL: first-frame static region only {ratio:.1%} — initialization will "
+                    "suffer; check scene_type / confidence threshold / mask expansion")
+            if ratio < 0.2:
+                Log(f"WARNING: expanded static region only {ratio:.1%} — reconstruction quality at "
+                    "risk; consider reducing mask expansion or adjusting scene prompts")
+            elif ratio < 0.4:
+                Log(f"CAUTION: limited static region {ratio:.1%} — tracking may be less stable")
         if init or render_depth is None:
             return torch.where(valid_rgb, cam.mono_depth, torch.zeros_like(cam.mono_depth)), cam
 
@@ -760,6 +812,10 @@ class SLAM:
         if removed is not None:
             self.occ_visibility.pop(removed, None)
 
+        # keyframe mask overlay dump
+        if self.masker is not None and getattr(self.masker, "save_images", False) and cam.has_static_mask:
+            self.masker.save_keyframe_overlay(cam.image, cam.static_mask, idx)
+
         self.timer.tic("kf_fusion")
         render_depth = track_res.depth[0]
         if self.depth_fusion_source == "median":
@@ -798,13 +854,15 @@ class SLAM:
         check_time = (idx - last_kf_idx) >= self.kf_interval
         curr_vis = self._last_curr_vis
         stats = self._last_track_stats
+        static = self._static_np.get(idx) if self.masker is not None else None
+        static_ratio = None if static is None else float(np.mean(static, dtype=np.float32))
         create_kf = is_keyframe(
             curr_R=self.frames[idx]["R"], curr_T=self.frames[idx]["T"],
             last_kf_R=self.frames[last_kf_idx]["R"], last_kf_T=self.frames[last_kf_idx]["T"],
             median_depth=self.median_depth, curr_visibility=curr_vis,
             last_kf_visibility=self.occ_visibility[last_kf_idx],
             kf_translation=self.kf_translation, kf_min_translation=self.kf_min_translation,
-            kf_overlap=self.kf_overlap, overlap_stats=stats,
+            kf_overlap=self.kf_overlap, static_ratio=static_ratio, overlap_stats=stats,
         )
         if len(self.current_window) < self.window_size:
             create_kf = check_time and (int(stats[2]) / max(int(stats[3]), 1)) < self.kf_overlap
@@ -839,6 +897,85 @@ class SLAM:
                 len(self.kf_indices) % self.save_trj_kf_intv == 0:
             eval_ate(self.frames, self.kf_indices, self.save_dir, idx, monocular=self.monocular)
 
+    # ------------------------------------------------------------- checkpoint
+
+    def save_state(self, path: str) -> None:
+        """Write the resumable state to the file `path`: the reference's key
+        set (the map, its Adam state, the keyframe buffer, the frame records
+        with their static masks, the window and visibility, the loop's
+        counters and the scale observations), with this SLAM's generator
+        state where the reference saves its JAX key. The keyframe buffer
+        goes in as its filled rows; the rows past `count` hold the buffer's
+        initial values and are made anew on load."""
+        kb = self.kfbuf
+        n = kb.count
+        save_checkpoint(path, {
+            "gmap": {f.name: getattr(self.gmap, f.name) for f in dataclasses.fields(self.gmap)},
+            "opt_state": {"m": dict(self.opt_state.m), "v": dict(self.opt_state.v),
+                          "count": int(self.opt_state.count)},
+            "kfbuf": {**{f.name: getattr(kb, f.name)[:n].clone() for f in dataclasses.fields(kb)
+                         if f.name != "count"}, "count": n, "capacity": kb.capacity},
+            "frames": {int(i): dict(f) for i, f in self.frames.items()},
+            "kf_indices": [int(i) for i in self.kf_indices],
+            "kf_slots": {int(k): int(v) for k, v in self.kf_slots.items()},
+            "current_window": [int(i) for i in self.current_window],
+            "occ_visibility": {int(k): v.clone() for k, v in self.occ_visibility.items()},
+            "initialized": bool(self.initialized),
+            "iteration_count": int(self.iteration_count),
+            "median_depth": float(self.median_depth),
+            "frames_processed": int(self.frames_processed),
+            "rng": self.generator.get_state(),
+            "idle_debt": int(self.idle_debt),
+            "last_sent": int(self.last_sent),
+            "anchor_scales": [float(x) for x in self._anchor_scales],
+            "mono_anchor_val": None if self._mono_anchor_val is None else float(self._mono_anchor_val),
+            "map_scale_obs": None if self._map_scale_obs is None else float(self._map_scale_obs),
+            "scale_history": [(int(f), float(v)) for f, v in self._scale_history],
+        })
+
+    def load_state(self, path: str) -> None:
+        """Restore what `save_state` wrote, onto this SLAM's device.
+        Checkpoints without the optional keys (idle_debt, last_sent and
+        the scale observations) take the reference's defaults. As in the
+        reference, the frame loop's per-frame scratch (`_last_resize_kf`,
+        `_servo_obs`, `_cams`) and the masker's history are not part of the
+        state (ROADMAP C9)."""
+        st = load_checkpoint(path, map_location=self.device)
+        self.gmap = gm.GaussianMap(**st["gmap"])
+        so = st["opt_state"]
+        self.opt_state = gm.AdamState(m=dict(so["m"]), v=dict(so["v"]), count=int(so["count"]))
+        kb = st["kfbuf"]
+        buf = slam_state.create_keyframe_buffer(int(kb["capacity"]), self.intr.height, self.intr.width,
+                                                self.device)
+        n = int(kb["count"])
+        for f in dataclasses.fields(buf):
+            if f.name != "count":
+                getattr(buf, f.name)[:n] = kb[f.name]
+        buf.count = n
+        self.kfbuf = buf
+        self.frames = {
+            int(i): {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in f.items()}
+            for i, f in st["frames"].items()
+        }
+        self.kf_indices = [int(i) for i in st["kf_indices"]]
+        self.kf_slots = {int(k): int(v) for k, v in st["kf_slots"].items()}
+        self.current_window = [int(i) for i in st["current_window"]]
+        self.occ_visibility = {int(k): v for k, v in st["occ_visibility"].items()}
+        self.initialized = bool(st["initialized"])
+        self.iteration_count = int(st["iteration_count"])
+        self.median_depth = float(st["median_depth"])
+        self.frames_processed = int(st["frames_processed"])
+        self.generator.set_state(st["rng"].cpu())
+        self.idle_debt = int(st.get("idle_debt", 0))
+        self.last_sent = int(st.get("last_sent", 0))
+        self._anchor_scales = [float(x) for x in st.get("anchor_scales", [])]
+        mav = st.get("mono_anchor_val")
+        self._mono_anchor_val = None if mav is None else float(mav)
+        mso = st.get("map_scale_obs")
+        self._map_scale_obs = None if mso is None else float(mso)
+        self._scale_history = [(int(f), float(v)) for f, v in st.get("scale_history", [])]
+        self._cached_num_active = None  # the restored map invalidates the cache
+
     def _start_profiler(self, profile_dir: str):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -868,7 +1005,13 @@ class SLAM:
         self._nan_scan(f"color_refine[{iters}]")
         Log("Map refinement done")
 
-    def run(self, n_frames: Optional[int] = None, progress: bool = True) -> dict:
+    def run(self, n_frames: Optional[int] = None, progress: bool = True,
+            checkpoint_every: Optional[int] = None) -> dict:
+        """Process frames from `frames_processed` (0, or where a loaded state
+        stopped) to `n_frames`, then colour refinement and the evaluation.
+        With `checkpoint_every`, the state is saved to
+        <save_dir>/checkpoint after every frame whose index + 1 is a
+        multiple of it. fps counts the frames this call processed."""
         n = len(self.dataset) if n_frames is None else min(n_frames, len(self.dataset))
         start = self.frames_processed
         loader = PrefetchLoader(self.dataset, depth=4, start=start, end=n)
@@ -900,6 +1043,8 @@ class SLAM:
                         time.sleep(budget)
                 if progress and idx % 25 == 0:
                     Log(f"frame {idx}/{n} kfs={len(self.kf_indices)} gaussians={self.gmap.num_active}")
+                if checkpoint_every and (idx + 1) % checkpoint_every == 0:
+                    self.save_state(os.path.join(self.save_dir, "checkpoint"))
         finally:
             loader.close()
             if profiler is not None:

@@ -1,6 +1,6 @@
 """End-to-end SLAM of the port on the synthetic dataset, on the CPU: the
 port's copy of tests/test_e2e_synthetic.py, with the same run and the same
-thresholds (ATE < 0.08, PSNR > 17)."""
+thresholds (ATE < 0.08, PSNR > 17), and of its checkpoint-resume test."""
 import os
 
 import numpy as np
@@ -52,3 +52,30 @@ def test_e2e_artifacts_and_ply_roundtrip(slam_results):
     active = slam.gmap.active.cpu().numpy()
     assert means.shape[0] == int(active.sum())
     np.testing.assert_allclose(means.sum(), float(slam.gmap.means.cpu().numpy()[active].sum()), rtol=1e-4)
+
+
+def test_checkpoint_resume(tmp_path):
+    """Port copy of tests/test_e2e_synthetic.py::test_checkpoint_resume: save
+    mid-run, resume in a fresh SLAM, results stay sane."""
+    config = load_config(CFG_PATH)
+    config["Dataset"]["n_frames"] = 10
+    config["Training"]["init_itr_num"] = 200
+    config["Training"]["mapping_itr_num"] = 20
+    config["Training"]["tracking_itr_num"] = 20
+    config["Results"]["color_refinement"] = False
+    config["Results"]["eval_rendering"] = False
+
+    s1 = SLAM(config, save_dir=str(tmp_path / "a"), device="cpu")
+    for i in range(6):
+        s1.process_frame(i)
+    ck = str(tmp_path / "ck")
+    s1.save_state(ck)
+
+    s2 = SLAM(config, save_dir=str(tmp_path / "b"), device="cpu")
+    s2.load_state(ck)
+    assert s2.frames_processed == s1.frames_processed
+    assert s2.kf_indices == s1.kf_indices
+    np.testing.assert_allclose(s2.gmap.means.numpy(), s1.gmap.means.numpy(), atol=0)
+    res = s2.run(progress=False)
+    assert res["n_frames"] == 10
+    assert res["ate_rmse"] < 0.2

@@ -463,7 +463,6 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
             SLAM(copy.deepcopy(cfg))
     asks = [("Performance", "bin_active_bucket", True, "C4"),
             ("Results", "global_BA", True, "A7"),
-            ("dynamic_filtering", "enabled", True, "A11"),
             ("mast3r", "checkpoint", "weights.pth", "A12"),
             ("Results", "save_depth_comparison", True, "A14"),
             ("Results", "viz_every", 1, "A14")]
@@ -476,6 +475,16 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     c = copy.deepcopy(cfg)
     c["Results"]["viz_every"] = 0
     SLAM(c, device="cpu")
+    # dynamic filtering is carried (A11): the config builds its masker, and
+    # only a configured detector or segmenter checkpoint waits (A13)
+    from lvdgs_torch.perception import build_masker
+
+    c = copy.deepcopy(cfg)
+    c["dynamic_filtering"] = {"enabled": True}
+    assert SLAM(c, device="cpu", masker=build_masker(c)).mcfg.use_masked_loss
+    c["dynamic_filtering"]["grounding_dino_checkpoint"] = "weights.pth"
+    with pytest.raises(NotImplementedError, match="A13"):
+        build_masker(c)
     # the bf16 packed blend is carried: it reaches the two optimiser-facing
     # render configs (packed here), not the exact renders' config
     c = copy.deepcopy(cfg)
