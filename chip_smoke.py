@@ -43,7 +43,21 @@ Phases, each of which must pass:
    at least 2 keyframes after init, ATE RMSE < 0.08 m and PSNR > 17 dB;
    right after the pyramid run, hold B4 (with touch counts, without, and
    as the probe) and B5 against their plain versions at the coarse stage's
-   pack of its final map from the newest keyframe, and time them; then
+   pack of its final map from the newest keyframe, and time them; the
+   tracking and mapping renders of these runs bin the active prefix of
+   the depth sort (the bucket, on by default on the card), whose value at
+   each update is printed; then the dynamic street, stopped and resumed;
+   then the MASt3R prior path: street.yaml with make_fused_priors and
+   make_scale_remedy over OracleMASt3R(depth_scale=0.9) and global BA,
+   held to ATE < 0.5 m and PSNR > 17 dB after global BA, with PnP
+   succeeding on at least half of the tracked frames, which must launch
+   B1, B3, B4 and B5; B3 held at the network's 32x9 tiles on its final
+   map; the full-width MASt3R network with random weights, saved in the
+   official checkpoint's layout and loaded back onto the card and the
+   CPU, its fused forward on two street frames at 512x144 held against
+   the CPU and against the two unfused forwards, and its fused priors run
+   once on the card (B3 at 32x9); one binning call of the packed run's
+   final map with the bucket and without, equal bins, both timed; then
    hold the kernels against their plain versions again on the slots the
    packed and the
    dense run's final maps give from their newest keyframes (B1-B3 on both,
@@ -51,8 +65,9 @@ Phases, each of which must pass:
    against the float32 ones from every keyframe by the reference's own
    measure (image and parameter gradients), and the gather's transpose on
    them against index_select's (its own sum must repeat bit for bit); then
-   drive the float32 street run once more, which must end with the first
-   run's map and poses bit for bit; then drive the resident-table probe
+   drive the float32 street run once more with the bucket off
+   (Performance.bin_active_bucket: False), which must end with the first,
+   bucketed, run's map and poses bit for bit; then drive the resident-table probe
    (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
 4. print the per-kernel JSON line (B4 and B5 also at the coarse pack, under
    their own names, with the coarse stage's launches), then the result
@@ -126,6 +141,13 @@ SOURCES = {"blend_forward": f"{_CSRC}/blend.cu", "blend_backward": f"{_CSRC}/ble
 BF16_PIXEL_ERR, BF16_PSNR, BF16_GRAD_COS = 0.02, 45.0, 0.999
 # limits of the SLAM runs (tests/test_e2e_synthetic.py)
 ATE_LIMIT, PSNR_LIMIT = 0.08, 17.0
+# the prior path's ATE bar (tests/test_oracle_prior.py), held with PSNR_LIMIT
+PRIOR_ATE_LIMIT = 0.5
+# the full-width MASt3R on the card against its CPU self and its unfused
+# forwards: float32 with TF32 off, in other summation orders through 36
+# transformer blocks; the raw head map relative to its largest magnitude,
+# the unit descriptors absolute
+NET_RAW_TOL, NET_DESC_TOL = 1e-4, 1e-3
 # the GT-mask render's pixels this close to the 0.5 coverage or opacity
 # threshold may flip between B1 and its plain version
 MASK_EDGE = 1e-5
@@ -704,13 +726,30 @@ def run_resident_probe() -> dict:
     return launches
 
 
+def log_buckets(slam) -> list:
+    """Wrap the SLAM's _update_bin_bucket so that each call appends (frame,
+    keyframes so far, bucket it left, active count it read, capacity) to
+    the returned list."""
+    log = []
+    update = slam._update_bin_bucket
+
+    def logged(lower_bound=0):
+        update(lower_bound)
+        log.append((slam.frames_processed, len(slam.kf_indices), slam.rcfg_map.bin_bucket,
+                    slam._num_active_cached(), slam.gmap.capacity))
+    slam._update_bin_bucket = logged
+    return log
+
+
 def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits: bool = True,
-             pyramid: bool = False):
+             pyramid: bool = False, bucket: bool = True):
     """Phase 3: the SLAM main path on the street scene, as configured
     (packed), as configured with blend_bf16 (bf16) or with
     Training.track_pyramid (pyramid), or with both packed budgets at 0
-    (dense). Without `hold_limits` an ATE or PSNR miss is printed and does
-    not fail."""
+    (dense). The tracking and mapping renders bin the active prefix (the
+    bucket, on by default on the card) unless `bucket` is False
+    (Performance.bin_active_bucket). Without `hold_limits` an ATE or PSNR
+    miss is printed and does not fail."""
     import numpy as np
     import torch
 
@@ -727,6 +766,8 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
         perf["packed_mapping_budget"] = 0
     perf["blend_bf16"] = bf16
     perf["synced_timers"] = True
+    if not bucket:
+        perf["bin_active_bucket"] = False
     config["Training"]["mono_scale_servo"] = False
     config["Training"]["track_pyramid"] = pyramid
     config["Results"]["eval_rendering"] = True
@@ -740,11 +781,13 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     print(f"{label} path: street.yaml at {cal['width']}x{cal['height']}, max_per_tile "
           f"{perf['max_per_tile']}, map_capacity {perf['map_capacity']}, kf_capacity "
           f"{perf['kf_capacity']}, window_size {config['Training']['window_size']}, packed budgets "
-          f"{budgets}, blend_bf16 {bf16}, track_pyramid {pyramid}, mono_scale_servo False", flush=True)
+          f"{budgets}, blend_bf16 {bf16}, track_pyramid {pyramid}, mono_scale_servo False, binning "
+          f"bucket {'on' if slam._bin_bucket_enable else 'off'}", flush=True)
     if (packed != slam.rcfg_track.use_packed or packed != slam.rcfg_map.use_packed
             or bf16 != slam.rcfg_track.blend_bf16 or bf16 != slam.rcfg_map.blend_bf16
-            or slam.rcfg.blend_bf16 or pyramid != slam.tcfg.pyramid):
+            or slam.rcfg.blend_bf16 or pyramid != slam.tcfg.pyramid or bucket != slam._bin_bucket_enable):
         fail(f"the {label} run does not render as asked")
+    buckets = log_buckets(slam)
     if frames != n_frames_full:
         print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
 
@@ -769,6 +812,11 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
               f"{t['mean_ms']:.2f} ms mean", flush=True)
     print(f"{label} path: keyframes {slam.kf_indices}, map scale observations "
           f"{[(k, round(v, 4)) for k, v in slam._scale_history]}", flush=True)
+    print(f"{label} path: binning bucket after each update (frames done, keyframes, bucket, actives, "
+          f"capacity): {buckets}", flush=True)
+    if not bucket and any(b[2] for b in buckets):
+        fail(f"the {label} run bucketed its binning with the bucket off")
+    slam.bucket_log = buckets
     print(f"launches on the {label} path: {json.dumps(launches)}", flush=True)
     print(f"packed launches on the {label} path by (NB, G): "
           f"{ {name: {str(k): n for k, n in by.items()} for name, by in shapes.items()} }", flush=True)
@@ -1000,6 +1048,336 @@ def run_dynamic(device, frames: int, stop: int) -> dict:
     return launches
 
 
+def time_binning(slam) -> None:
+    """One binning call (the tracking and mapping renders' dense slot
+    selection) of the run's final map from its newest keyframe, with the
+    bucket the run last used and at full capacity: the bins must be equal
+    bit for bit, and each is timed (CUDA events)."""
+    import dataclasses
+
+    import torch
+    from lvdgs_torch.ops import rasterizer as tr
+    from lvdgs_torch.tools.timing import time_ms
+
+    used = [b[2] for b in slam.bucket_log if b[2]]
+    if not used:
+        print(f"binning: the run never bucketed (capacity {slam.gmap.capacity}, "
+              f"{slam.gmap.num_active} active)", flush=True)
+        return
+    bucket = used[-1]
+    p, active = slam.gmap.params(), slam.gmap.active
+    slot = slam.kf_slots[slam.kf_indices[-1]]
+    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active, slam.kfbuf.R[slot],
+                                slam.kfbuf.T[slot], slam.intr)
+    ntx, nty = slam.rcfg_map.grid(slam.intr)
+    cfgs = {b: dataclasses.replace(slam.rcfg_map, bin_bucket=b) for b in (bucket, 0)}
+    bins = {b: tr._bin_for(proj, cfg, ntx, nty) for b, cfg in cfgs.items()}
+    same = all(torch.equal(x, y) for x, y in zip(bins[bucket], bins[0]))
+    ms = {b: time_ms(lambda cfg=cfg: tr._bin_for(proj, cfg, ntx, nty), reps=10) for b, cfg in cfgs.items()}
+    n_valid = int(proj["valid"].sum())
+    print(f"binning of the packed run's final map ({n_valid} valid of {slam.gmap.capacity} slots, "
+          f"{slam.gmap.num_active} active): {ms[bucket]:.4f} ms a call with the bucket at {bucket}, "
+          f"{ms[0]:.4f} ms at full capacity; bins {'equal bit for bit' if same else 'DIFFERENT'}",
+          flush=True)
+    if not same and n_valid <= bucket:
+        fail("the bucketed bins differ from full-capacity binning while the bucket holds the valid")
+
+
+def run_prior(device, frames: int):
+    """Phase 3: the MASt3R prior path on the street scene. street.yaml,
+    packed as configured (the bucket on), Training.pose_seed
+    constant_velocity, with make_fused_priors and make_scale_remedy over
+    OracleMASt3R(depth_scale=0.9) (the network's forwards made from ground
+    truth; matching on the card, the map's median depth, PnP-RANSAC and the
+    seed's composition as in production) given to SLAM's constructor, and
+    Results.global_BA at the config's global_BA_itr_num. Held to the
+    reference's bars for this path: ATE < PRIOR_ATE_LIMIT and PSNR >
+    PSNR_LIMIT after global BA; PnP must succeed on at least half of the
+    tracked frames; B1, B3, B4 and B5 must launch. Returns (launches,
+    slam)."""
+    import numpy as np
+    import torch
+
+    from lvdgs_torch.core.config import load_config
+    from lvdgs_torch.data.datasets import load_dataset
+    from lvdgs_torch.eval.ate import eval_ate
+    from lvdgs_torch.models.mast3r import inference
+    from lvdgs_torch.models.mast3r.oracle import OracleMASt3R
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.slam.system import SLAM
+
+    label = "prior"
+    if inference.cv2 is None:
+        fail("the prior path needs OpenCV (cv2): without it PnP cannot run")
+    config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
+    n_frames_full = config["Dataset"]["n_frames"]
+    config["Dataset"]["n_frames"] = frames
+    config["Training"]["pose_seed"] = "constant_velocity"
+    config["Training"]["mono_scale_servo"] = False
+    config["Results"]["global_BA"] = True
+    config["Results"]["eval_rendering"] = True
+    config["Performance"]["synced_timers"] = True
+    cal = config["Dataset"]["Calibration"]
+    # the oracle's frames come from a dataset of its own, as the priors are
+    # built before SLAM; the card renders the same frames bit for bit
+    ds = load_dataset(None, "", config, device)
+    oracle = OracleMASt3R(ds, ds.intrinsics, depth_scale=0.9)
+    depth_prior, pose_prior = inference.make_fused_priors(oracle, ds.intrinsics, ds.dist_coeffs)
+    host = {"depth": [], "pose": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host[name].append(time.perf_counter() - t0)
+            return out
+        call.wants_kf = getattr(fn, "wants_kf", False)
+        return call
+
+    pnp = {"calls": 0, "ok": 0}
+    pose_from_preds = inference._pose_from_preds
+
+    def counted(*args, **kw):
+        pose, depth = pose_from_preds(*args, **kw)
+        pnp["calls"] += 1
+        pnp["ok"] += int(not np.allclose(pose, np.eye(4), atol=1e-6))
+        return pose, depth
+
+    host["remedy"] = []
+    slam = SLAM(config, save_dir=None, device=device, depth_prior=timed("depth", depth_prior),
+                pose_prior=timed("pose", pose_prior),
+                scale_remedy=timed("remedy", inference.make_scale_remedy(oracle)))
+    print(f"{label} path: street.yaml at {cal['width']}x{cal['height']}, packed budgets tracking "
+          f"{slam.rcfg_track.slot_budget_per_tile}, mapping {slam.rcfg_map.slot_budget_per_tile}, binning "
+          f"bucket {'on' if slam._bin_bucket_enable else 'off'}, pose_seed constant_velocity, fused priors "
+          f"and scale remedy over OracleMASt3R(depth_scale=0.9), global BA {slam.global_ba_iters} iterations, "
+          f"mono_scale_servo False, cv2 {inference.cv2.__version__}", flush=True)
+    if frames != n_frames_full:
+        print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
+    if not (slam.do_global_ba and slam.rcfg_track.use_packed and slam._bin_bucket_enable):
+        fail(f"the {label} run does not render or adjust as asked")
+    buckets = log_buckets(slam)
+    ba = {}
+    global_ba = slam.global_ba
+
+    def timed_ba(*args):
+        ba["ate_before"] = eval_ate(slam.frames, slam.kf_indices, None, frames, final=True, monocular=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        global_ba(*args)
+        torch.cuda.synchronize()
+        ba["s"] = time.perf_counter() - t0
+    slam.global_ba = timed_ba
+
+    for w in rc.KERNEL_WRAPPERS:
+        w.launches.reset()
+    inference._pose_from_preds = counted
+    t0 = time.perf_counter()
+    try:
+        results = slam.run(progress=True)
+    finally:
+        inference._pose_from_preds = pose_from_preds
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
+    b3_shapes = rc.median_depth.launches.by_shape
+
+    ate = eval_ate(slam.frames, slam.kf_indices, None, frames, final=True, monocular=True)
+    psnr = results.get("mean_psnr", float("nan"))
+    tracked = frames - 1
+    print(f"{label} path: {results['n_frames']} frames, {results['n_keyframes']} keyframes, "
+          f"{slam.gmap.num_active} active Gaussians, {results['fps']:.4f} fps over the frames, {wall:.1f} s "
+          f"with global BA and the eval; ATE RMSE {ba.get('ate_before', float('nan')):.4f} m before global BA "
+          f"and {ate:.4f} m after (limit {PRIOR_ATE_LIMIT}), PSNR {psnr:.3f} dB over "
+          f"{results.get('n_eval_frames', 0)} frames (limit {PSNR_LIMIT})", flush=True)
+    print(f"{label} path: global BA {slam.global_ba_iters} iterations in {ba.get('s', float('nan')):.3f} s; PnP "
+          f"succeeded on {pnp['ok']} of {pnp['calls']} pose-prior calls ({tracked} tracked frames); prior host "
+          f"time per frame: depth prior (the fused forward, its resize) {1e3 * np.mean(host['depth']):.2f} ms "
+          f"mean over {len(host['depth'])}, pose prior (matching on the card, the median render, PnP) "
+          f"{1e3 * np.mean(host['pose']):.2f} ms mean over {len(host['pose'])}; the scale remedy asked "
+          f"{len(host['remedy'])} times, {1e3 * sum(host['remedy']):.2f} ms in all", flush=True)
+    for name, t in results["timers"].items():
+        print(f"{label} timer {name}: {t['total_s']:.3f} s total, {t['count']} calls, {t['mean_ms']:.2f} ms mean",
+              flush=True)
+    print(f"{label} path: keyframes {slam.kf_indices}; binning bucket after each update (frames done, "
+          f"keyframes, bucket, actives, capacity): {buckets}", flush=True)
+    print(f"launches on the {label} path: {json.dumps(launches)}; B3 by (T, ntx): "
+          f"{ {str(k): n for k, n in b3_shapes.items()} }", flush=True)
+    for name in ("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_backward"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched on the {label} path")
+    if pnp["calls"] != tracked or 2 * pnp["ok"] < tracked:
+        fail(f"{label} path: PnP succeeded on {pnp['ok']} of {tracked} tracked frames; the prior is not "
+             "engaging")
+    poses = np.stack([np.concatenate([np.ravel(f["R"]), np.ravel(f["T"])]) for f in slam.frames.values()])
+    if not np.isfinite(poses).all():
+        fail(f"{label} path: non-finite pose")
+    for k, v in slam.gmap.params().items():
+        if not bool(torch.isfinite(v[slam.gmap.active]).all()):
+            fail(f"{label} path: non-finite map field {k}")
+    if not ate < PRIOR_ATE_LIMIT:
+        fail(f"{label} path: ATE RMSE {ate:.4f} m is not below {PRIOR_ATE_LIMIT}")
+    if not psnr > PSNR_LIMIT:
+        fail(f"{label} path: PSNR {psnr:.3f} dB is not above {PSNR_LIMIT}")
+    return launches, slam
+
+
+def check_median_subres(slam, hw=(144, 512)) -> dict:
+    """B3 against its plain version on the block the pose prior renders
+    with the network: the run's final map from its newest keyframe at the
+    network's resolution (the street's 1226x370 preprocessed to 512x144:
+    32x9 tiles), within 1e-5 and launched twice, the same bits; timed."""
+    import torch
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.tools.blocks import main_path_dense_block
+    from lvdgs_torch.tools.timing import graph_ms, time_ms
+
+    tp, counts, ntx = main_path_dense_block(slam, slam.intr.scaled(hw[1], hw[0]))
+    out, again = rc.median_depth(tp, counts, ntx), rc.median_depth(tp, counts, ntx)
+    ref = rc.median_depth_plain(tp, counts, ntx)
+    torch.cuda.synchronize()
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    repeats = all(torch.equal(a, b) for a, b in zip(out, again))
+    r = {"max_abs_err": err, "ms": time_ms(lambda: rc.median_depth(tp, counts, ntx), reps=10, inner=20),
+         "plain_ms": time_ms(lambda: rc.median_depth_plain(tp, counts, ntx), reps=5, warmup=1)}
+    lib = rc._library()
+    dmed, opac = (torch.empty_like(x) for x in out)
+    ptrs = [x.data_ptr() for x in (tp, counts, dmed, opac)]
+    K, T, _ = tp.shape
+    r["graph_ms"] = graph_ms(lambda: rc._check_launch(lib.lvdgs_median_depth(*ptrs, K, T, ntx, rc._stream()),
+                                                      "median_depth"))
+    ok = err <= 1e-5 and repeats
+    print(f"kernel median_depth [prior run's final map at {hw[1]}x{hw[0]}, {ntx}x{T // ntx} tiles, K {K}]: "
+          f"max_abs_err {err:.3e} against a tolerance of 1e-05, launched twice, equal bits: {repeats} "
+          f"{'ok' if ok else 'DISAGREES'}; {r['ms']:.4f} ms through the wrapper, {r['graph_ms']:.4f} from a "
+          f"CUDA graph, plain {r['plain_ms']:.3f} ms", flush=True)
+    if not ok:
+        fail("median_depth disagrees with its plain version at the network's resolution")
+    return r
+
+
+def run_network(device, slam) -> None:
+    """The MASt3R network at its full published width (MASt3RConfig(),
+    ViT-L encoder, ViT-B decoder), random weights from a seeded
+    torch.Generator: saved as the official checkpoint is laid out (its
+    state_dict under the official names, with the DPT scratch's layer_rn
+    aliases, under "model", and an argparse.Namespace under "args") and
+    loaded back through MASt3RInference.from_checkpoint, onto the card and
+    onto the CPU. One fused forward on two street frames preprocessed to
+    512x144 is held against the same module on the CPU (the raw head
+    feature map within NET_RAW_TOL of its largest magnitude, the
+    normalised descriptors within NET_DESC_TOL) and against the two
+    unfused forwards on the card; the fused priors then run once on the
+    card over the prior run's final map, whose pose prior renders B3 at
+    the network's 32x9 tiles."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lvdgs_torch.models.mast3r import inference
+    from lvdgs_torch.models.mast3r import model as mm
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.tools.timing import time_ms
+
+    cfg = mm.MASt3RConfig()
+    t0 = time.perf_counter()
+    model = mm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    sd = model.state_dict()
+    official = dict(sd)
+    for h in (1, 2):
+        for i in range(4):
+            official[f"downstream_head{h}.dpt.scratch.layer_rn.{i}.weight"] = \
+                sd[f"downstream_head{h}.dpt.scratch.layer{i + 1}_rn.weight"]
+    tmp = tempfile.mkdtemp(prefix="lvdgs_mast3r_")
+    try:
+        path = os.path.join(tmp, "mast3r.pth")
+        torch.save({"model": official, "args": argparse.Namespace(model="AsymmetricMASt3R", seed=0)}, path)
+        size = os.path.getsize(path)
+        card = inference.MASt3RInference.from_checkpoint(path, device=device)
+        host = inference.MASt3RInference.from_checkpoint(path, device="cpu")
+    finally:
+        shutil.rmtree(tmp)
+    same = all(torch.equal(v, sd[k]) for k, v in card.model.state_dict().items())
+    del model, sd, official
+    torch.cuda.empty_cache()
+    print(f"network: MASt3RConfig() (encoder {cfg.enc_dim}x{cfg.enc_depth}, decoder {cfg.dec_dim}x{cfg.dec_depth}), "
+          f"{sum(p.numel() for p in card.model.parameters())} parameters, {nbytes} parameter bytes; random init, "
+          f"the official layout saved ({size} bytes) and loaded onto the card and the CPU in "
+          f"{time.perf_counter() - t0:.1f} s; loaded weights equal the saved ones: {same}", flush=True)
+    if not same:
+        fail("the MASt3R checkpoint loaded back differs from the saved weights")
+
+    ds = slam.dataset
+    kf_idx, cur_idx = 0, 5
+    x1, shape = card._batch(ds[kf_idx][0])
+    x2, _ = card._batch(ds[cur_idx][0])
+    fused = mm.mast3r_forward_fused(card.model, x1, x2, raw=True)
+    t_cpu = time.perf_counter()
+    fused_cpu = mm.mast3r_forward_fused(host.model, x1.cpu(), x2.cpu(), raw=True)
+    t_cpu = time.perf_counter() - t_cpu
+    pair = mm.mast3r_forward(card.model, x1, x2, raw=True)
+    depth = mm.mast3r_forward(card.model, x2, x2, raw=True)[0]
+    torch.cuda.synchronize()
+
+    def errs(a, b):
+        raw = float((a["raw"].cpu() - b["raw"].cpu()).abs().max()) / float(b["raw"].abs().max())
+        return raw, float((a["desc"].cpu() - b["desc"].cpu()).abs().max())
+
+    names = ("pose pair view 1", "pose pair view 2", "depth pair view 1")
+    ok = True
+    for name, got, cpu, unfused in zip(names, fused, fused_cpu, (*pair, depth)):
+        # random weights at full width: expm1 of the pointmap's norm may
+        # overflow, so the raw map and the descriptors are what is held
+        finite = bool(torch.isfinite(got["raw"]).all() and torch.isfinite(got["desc"]).all())
+        overflow = {k: int((~torch.isfinite(got[k])).sum()) for k in ("pts3d", "conf", "desc_conf")}
+        e_cpu, e_unf = errs(got, cpu), errs(got, unfused)
+        good = finite and max(e_cpu[0], e_unf[0]) <= NET_RAW_TOL and max(e_cpu[1], e_unf[1]) <= NET_DESC_TOL
+        ok = ok and good
+        print(f"network [{name}, {shape[1]}x{shape[0]}]: raw head map against the CPU {e_cpu[0]:.3e} and "
+              f"against the unfused forward {e_unf[0]:.3e} of its largest magnitude "
+              f"({float(cpu['raw'].abs().max()):.4e}; tolerance {NET_RAW_TOL:.0e}), descriptors "
+              f"{e_cpu[1]:.3e} and {e_unf[1]:.3e} (tolerance {NET_DESC_TOL:.0e}), finite {finite}; "
+              f"non-finite values after post-processing {overflow} {'ok' if good else 'DISAGREES'}", flush=True)
+    if not ok:
+        fail("the full-width MASt3R on the card disagrees with its CPU self or its unfused forwards")
+    fused_ms = time_ms(lambda: mm.mast3r_forward_fused(card.model, x1, x2), reps=5, warmup=1)
+    pair_ms = time_ms(lambda: (mm.mast3r_forward(card.model, x1, x2), mm.mast3r_forward(card.model, x2, x2)),
+                      reps=5, warmup=1)
+    print(f"network: fused forward {fused_ms:.3f} ms median (the two unfused forwards it replaces "
+          f"{pair_ms:.3f} ms; the CPU's fused forward {t_cpu:.1f} s)", flush=True)
+
+    # the production priors on the card, once, over the prior run's final map
+    depth_prior, pose_prior = inference.make_fused_priors(card, slam.intr, ds.dist_coeffs)
+    kf = slam._cams[slam.current_window[0]]
+
+    class Cam:
+        uid = max(kf.uid - 1, 0)
+        image = ds[uid][0]
+
+    rc.median_depth.launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = depth_prior(Cam.image, last_kf_cam=kf)
+    seed = pose_prior(Cam, kf, slam)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    b3 = rc.median_depth.launches.by_shape
+    sub = (shape[0] // 16 * (shape[1] // 16), shape[1] // 16)
+    print(f"network priors on the card (random weights, frame {Cam.uid} against keyframe {kf.uid}): mono "
+          f"depth {tuple(mono.shape)}, {int(np.isfinite(mono).sum())} finite values; pose seed "
+          f"{'given' if seed is not None else 'none'}; {1e3 * host_s:.1f} ms for both; B3 launches by "
+          f"(T, ntx) {({str(k): n for k, n in b3.items()})}", flush=True)
+    if b3.get(sub, 0) == 0:
+        fail(f"the pose prior did not launch B3 at the network's {sub[1]}x{sub[0] // sub[1]} tiles")
+    del card, host
+    torch.cuda.empty_cache()
+
+
 def deterministic_street(device, frames: int, out: str, against: str | None, packed: bool) -> None:
     """The float32 street run, packed or dense, under
     torch.use_deterministic_algorithms(True), where it repeats bit for bit:
@@ -1045,7 +1423,8 @@ def same_state(state: dict, other: dict, label: str) -> bool:
 def check_default_budgets(device) -> None:
     """A config with no budget keys renders packed on the card, as the
     reference does off the CPU: tracking at 96, mapping at 128, both with
-    saturation feedback; the exact renders dense."""
+    saturation feedback, binning the active prefix (the bucket); the exact
+    renders dense."""
     from lvdgs_torch.core.config import load_config
     from lvdgs_torch.slam.system import SLAM
 
@@ -1056,16 +1435,16 @@ def check_default_budgets(device) -> None:
     t, m = slam.rcfg_track, slam.rcfg_map
     ok = (t.use_packed and t.slot_budget_per_tile == 96 and t.saturation_feedback
           and m.use_packed and m.slot_budget_per_tile == 128 and m.saturation_feedback
-          and not slam.rcfg.use_packed)
+          and not slam.rcfg.use_packed and slam._bin_bucket_enable)
     def describe(cfg):
         return (f"packed at {cfg.slot_budget_per_tile}, feedback {cfg.saturation_feedback}"
                 if cfg.use_packed else "dense")
 
     print(f"defaults on {device.type} (base_config.yaml, no budget keys): tracking {describe(t)}, "
-          f"mapping {describe(m)}, exact renders {describe(slam.rcfg)} {'ok' if ok else 'WRONG'}",
-          flush=True)
+          f"mapping {describe(m)}, exact renders {describe(slam.rcfg)}, binning bucket "
+          f"{'on' if slam._bin_bucket_enable else 'off'} {'ok' if ok else 'WRONG'}", flush=True)
     if not ok:
-        fail("SLAM's packed defaults on the card are not 96/128 with feedback")
+        fail("SLAM's defaults on the card are not packed 96/128 with feedback and the binning bucket on")
 
 
 def main() -> None:
@@ -1186,6 +1565,17 @@ def main() -> None:
     for name, n in run_dynamic(device, args.frames, args.frames // 2).items():
         launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
+    # the MASt3R prior path over the oracle, with global BA; then B3 at the
+    # network's resolution on its final map, and the full-width network
+    prior_launches, prior_slam = run_prior(device, args.frames)
+    for name, n in prior_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    check_median_subres(prior_slam)
+    run_network(device, prior_slam)
+    del prior_slam
+    torch.cuda.empty_cache()
+    # one binning call of the packed run's final map, bucketed and not
+    time_binning(packed_slam)
     # the same checks on the slots the packed and the dense path blend
     dense_blocks = {"packed run": main_path_dense_block(packed_slam),
                     "dense run": main_path_dense_block(dense_slam)}
@@ -1211,12 +1601,13 @@ def main() -> None:
     packed_state = street_state(packed_slam)
     del packed_slam, blocks
     torch.cuda.empty_cache()
-    # the float32 street run once more, after all the card's other work: it
-    # must end where the first did, bit for bit (its launches are not
-    # counted in the kernel line)
-    _launches, slam = run_slam(device, args.frames, True)
-    if not same_state(street_state(slam), packed_state, "packed path, second run against the first"):
-        fail("the float32 street run does not repeat bit for bit")
+    # the float32 street run once more, after all the card's other work and
+    # with the binning bucket off: it must end where the first (bucketed)
+    # run did, bit for bit (its launches are not counted in the kernel line)
+    _launches, slam = run_slam(device, args.frames, True, bucket=False)
+    if not same_state(street_state(slam), packed_state,
+                      "packed path, second run (bucket off) against the first (bucket on)"):
+        fail("the float32 street run without the bucket does not repeat the bucketed run bit for bit")
     del slam
     torch.cuda.empty_cache()
     launches.update(run_resident_probe())

@@ -3,9 +3,11 @@
 Loads the layered YAML config, builds the dynamic-object masker
 (`dynamic_filtering`), the dataset, Gaussian map and SLAM system on the
 chosen device (CUDA by default), runs the SLAM loop, then colour
-refinement and the final evaluation. `--checkpoint-every N` saves the
-state to <save-dir>/checkpoint every N frames; `--resume FILE` continues a
-run from such a file.
+refinement and the final evaluation. When `mast3r.checkpoint` names a file
+that exists, the MASt3R network is loaded from it onto the device and its
+fused pose and depth priors and scale remedy are handed to SLAM.
+`--checkpoint-every N` saves the state to <save-dir>/checkpoint every N
+frames; `--resume FILE` continues a run from such a file.
 """
 import argparse
 import os
@@ -40,7 +42,25 @@ def main(argv=None):
         save_dir = os.path.join(config.get("Results", {}).get("save_dir", "results"), stamp)
     os.makedirs(save_dir, exist_ok=True)
 
-    slam = SLAM(config, save_dir=save_dir, device=args.device, masker=build_masker(config))
+    # MASt3R pointmap priors (pose seed and mono depth from one fused
+    # forward per tracked frame, and the scale remedy) when a checkpoint is
+    # configured
+    priors = {}
+    ckpt = (config.get("mast3r", {}) or {}).get("checkpoint")
+    if ckpt and os.path.exists(ckpt):
+        from lvdgs_torch.data.datasets import load_dataset
+        from lvdgs_torch.models.mast3r.inference import (
+            MASt3RInference, make_fused_priors, make_scale_remedy,
+        )
+        from lvdgs_torch.slam.system import resolve_device
+
+        model = MASt3RInference.from_checkpoint(ckpt, device=resolve_device(args.device))
+        ds = load_dataset(None, "", config, model.device)
+        depth_prior, pose_prior = make_fused_priors(model, ds.intrinsics, ds.dist_coeffs)
+        priors = dict(depth_prior=depth_prior, pose_prior=pose_prior, scale_remedy=make_scale_remedy(model))
+        Log(f"MASt3R fused priors enabled from {ckpt}")
+
+    slam = SLAM(config, save_dir=save_dir, device=args.device, masker=build_masker(config), **priors)
     if args.no_color_refinement:
         slam.do_color_refinement = False
     if args.no_eval_rendering:

@@ -78,6 +78,12 @@ class RenderConfig:
     # the accumulations: the optimiser-facing renders only; the probe and
     # the dense exact renders stay float32
     blend_bf16: bool = False
+    # active-prefix binning bucket (0 = full capacity): the depth-sorted
+    # candidate arrays are sliced to this many entries before the tile
+    # top-k selections. Exact while the valid count stays <= bucket; when it
+    # binds, only the farthest valid Gaussians drop out of binning. The
+    # SLAM host re-buckets as the map grows and prunes.
+    bin_bucket: int = 0
 
     def __post_init__(self):
         if self.tile_size != 16:
@@ -192,6 +198,7 @@ def bin_gaussians(
     tile_chunk: int,
     coarse_factor: int = 8,
     max_per_coarse: int = 4096,
+    bin_bucket: int = 0,
 ):
     """Per-tile front-most-K selection over the global depth sort.
 
@@ -199,6 +206,10 @@ def bin_gaussians(
     tile, so the assignment stays valid while the pose drifts between
     rebins. Margin-only candidates rank strictly below every real
     intersector, and the slot list is re-sorted by depth.
+
+    `bin_bucket` > 0 bins only the first `bin_bucket` entries of the depth
+    sort (at least K), which hold every valid Gaussian while their count
+    stays within it.
 
     Returns (tile_idx (T, K) int64 with C for empty slots, slot_valid
     (T, K) bool); the valid slots of each row form a prefix."""
@@ -218,6 +229,13 @@ def bin_gaussians(
         sv = torch.cat([sv, sv.new_zeros(pad_n)])
         order = torch.cat([order, order.new_full((pad_n,), C)])
     Cs = sv.shape[0]
+    if 0 < bin_bucket < Cs:
+        # the depth sort puts the valid Gaussians first, so while they fit
+        # the slice drops only invalid entries; the scores below rank by
+        # position alone, so the selections keep their slots and order
+        # (the two-level choice, as in the reference, reads the sliced Cs)
+        Cs = max(bin_bucket, K)
+        sm, sr, sv, order = sm[:Cs], sr[:Cs], sv[:Cs], order[:Cs]
 
     srm = sr + margin
     x0 = _tile_floor(sm[:, 0] - sr, ts)
@@ -603,7 +621,7 @@ def _bin_for(proj, cfg: RenderConfig, ntx: int, nty: int, margin: float = 0.0, m
         margin,
         ntx=ntx, nty=nty, tile_size=cfg.tile_size, max_per_tile=cfg.max_per_tile,
         tile_chunk=cfg.tile_chunk, coarse_factor=cfg.coarse_factor,
-        max_per_coarse=cfg.max_per_coarse,
+        max_per_coarse=cfg.max_per_coarse, bin_bucket=cfg.bin_bucket,
     )
 
 

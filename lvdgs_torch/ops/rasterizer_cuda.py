@@ -84,7 +84,8 @@ _NVCC_FLAGS = [
 
 class LaunchCounter:
     """Number of kernel launches made by one wrapper, in all and per launch
-    shape where the wrapper names one (the packed kernels: (NB, G)).
+    shape where the wrapper names one (the packed kernels: (NB, G); the
+    median: (T, ntx)).
     Thread-safe: the dataset's prefetch thread renders through the same
     kernels."""
 
@@ -628,7 +629,7 @@ def median_depth(tp: torch.Tensor, counts: torch.Tensor, ntx: int):
         tp.data_ptr(), counts.data_ptr(), dmed.data_ptr(), opac.data_ptr(), K, T, ntx, _stream(),
     )
     _check_launch(err, "median_depth")
-    median_depth.launches.add()
+    median_depth.launches.add((T, ntx))
     return dmed, opac
 
 

@@ -1,5 +1,5 @@
-"""Windowed mapping, covisibility prune and colour refinement (PyTorch port
-of ``lvdgs_tpu/slam/mapping.py``).
+"""Windowed mapping, covisibility prune, colour refinement and global BA
+(PyTorch port of ``lvdgs_tpu/slam/mapping.py``).
 
 One `mapping_run` call is one mapping invocation of the reference backend:
 `n_iters` iterations over the keyframe window plus `n_random` replayed
@@ -386,6 +386,49 @@ def color_refine_run(
             for k in ("means", "log_scales", "quats"):
                 grads[k] = torch.zeros_like(grads[k])
         opt.step(gmap, grads, opt_state, it0 + i + 1)
+
+
+def global_ba_run(
+    gmap: gm.GaussianMap,
+    opt_state: gm.AdamState,
+    kfbuf: KeyframeBuffer,
+    generator: torch.Generator,
+    n_iters: int,
+    it0: int = 0,
+    *,
+    intr: Intrinsics,
+    rcfg: RenderConfig,
+    opt: gm.MapOptimizer,
+    mcfg: MappingConfig,
+) -> None:
+    """Global bundle adjustment, in place: each iteration draws one stored
+    keyframe, renders it and takes the gradient of the L1 photometric plus
+    mono-depth loss with respect to the map and a zero se(3) delta of that
+    keyframe's pose; the map takes its Adam step and the pose a plain step
+    of -lr_tau * g_tau, unless the keyframe is frame 0 (pinned) or the
+    gradient is not finite (per component). The pinning and finiteness
+    tests run on the device, so the loop never waits on it."""
+    dev = gmap.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    lr_tau = torch.tensor([mcfg.lr_trans] * 3 + [mcfg.lr_rot] * 3, **f32)
+    for i in range(int(n_iters)):
+        slot = int(torch.randint(0, max(kfbuf.count, 1), (), generator=generator))
+        cam = camera_from_slot(kfbuf, slot)
+        params = {k: v.detach().requires_grad_(True) for k, v in gmap.params().items()}
+        tau = torch.zeros(6, **f32, requires_grad=True)
+        R, T = lie.apply_delta(kfbuf.R[slot], kfbuf.T[slot], tau)
+        out = rasterize(params, gmap.active, R, T, intr, rcfg, need_n_touched=False)
+        gt = cam.image
+        mr = (gt.sum(0) > mcfg.rgb_boundary_threshold)[None].to(torch.float32)
+        md = (cam.mono_depth > 0.01)[None].to(torch.float32)
+        loss = mcfg.alpha * (out.image * mr - gt * mr).abs().mean() + (1 - mcfg.alpha) * (
+            out.depth * md - cam.mono_depth[None] * md).abs().mean()
+        *g_params, g_tau = torch.autograd.grad(loss, [*params.values(), tau])
+        opt.step(gmap, dict(zip(params, g_params)), opt_state, it0 + i + 1)
+        with torch.no_grad():
+            move = (kfbuf.frame_idx[slot] != 0) & torch.isfinite(g_tau)
+            tau_new = torch.where(move, -lr_tau * g_tau, torch.zeros_like(g_tau))
+            kfbuf.R[slot], kfbuf.T[slot] = lie.apply_delta(kfbuf.R[slot], kfbuf.T[slot], tau_new)
 
 
 def _prune_from_occ(gmap: gm.GaussianMap, occ_vis, window_slots: List[int], kfbuf: KeyframeBuffer,

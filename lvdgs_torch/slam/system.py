@@ -24,11 +24,20 @@ static-region metrics. `save_state`/`load_state` write and read the
 reference's resumable key set in one `torch.save` file, and
 `run(checkpoint_every=N)` saves it every N frames.
 
+Priors: `pose_prior(cam, last_kf_cam, slam)` seeds tracking, `depth_prior`
+gives each frame's mono depth (with `wants_kf`, it also takes the last
+keyframe's camera, so one fused MASt3R forward serves both) and
+`scale_remedy(cam, last_kf_cam)` gives the fusion a scale where patch
+alignment finds too few pixels (``lvdgs_torch.models.mast3r.inference``).
+The tracking and mapping renders bin only the active prefix of the depth
+sort (`_update_bin_bucket`, on by default off the CPU), and
+`Results.global_BA` runs a photometric global bundle adjustment before
+colour refinement.
+
 Configuration keys and defaults are those of the reference package. Paths
 that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: the active-prefix binning bucket (C4), global BA (A7), MASt3R
-priors and the pose/depth/scale prior hooks (A12), the GUI and the
-visualisation panels (A14) and data-parallel mapping (A15).
+ROADMAP item: the GUI and the visualisation panels (A14) and data-parallel
+mapping (A15).
 """
 from __future__ import annotations
 
@@ -58,7 +67,8 @@ from . import state as slam_state
 from .depth_alignment import process_depth
 from .keyframe import add_to_window, is_keyframe, visibility_pair_stats, visibility_window_stats
 from .mapping import (
-    MappingConfig, color_refine_run, covisibility_prune, covisibility_prune_from_occ, mapping_run,
+    MappingConfig, color_refine_run, covisibility_prune, covisibility_prune_from_occ, global_ba_run,
+    mapping_run,
 )
 from .tracking import TrackingConfig, track_camera, track_camera_pyramid
 
@@ -82,19 +92,15 @@ def _dilate_mask(mask: torch.Tensor, kernel: int) -> torch.Tensor:
 
 def _refuse_unported(config: dict) -> None:
     perf = config.get("Performance", {}) or {}
-    tr = config.get("Training", {}) or {}
     res = config.get("Results", {}) or {}
     checks = [
-        (perf.get("bin_active_bucket", False), "the active-prefix binning bucket (ROADMAP C4)"),
         (perf.get("data_parallel", False), "data-parallel mapping (ROADMAP A15)"),
-        (res.get("global_BA", False), "global bundle adjustment (ROADMAP A7)"),
         (res.get("use_gui", False), "the GUI feed (ROADMAP A14)"),
         (res.get("save_depth_comparison", False),
          "the depth-comparison panels, Results.save_depth_comparison (ROADMAP A14)"),
         # only an explicit non-zero value: the reference's default of 1
         # writes best-effort panels that the port does not write yet
         (res.get("viz_every", 0), "the eval visualisation panels, Results.viz_every (ROADMAP A14)"),
-        ((config.get("mast3r", {}) or {}).get("checkpoint"), "MASt3R priors (ROADMAP A12)"),
     ]
     for asked, what in checks:
         if asked:
@@ -104,7 +110,8 @@ def _refuse_unported(config: dict) -> None:
 class SLAM:
     """End-to-end monocular Gaussian-splatting SLAM."""
 
-    def __init__(self, config: dict, save_dir: Optional[str] = None, device=None, masker=None):
+    def __init__(self, config: dict, save_dir: Optional[str] = None, device=None, masker=None,
+                 pose_prior=None, depth_prior=None, scale_remedy=None):
         _refuse_unported(config)
         self.device = resolve_device(device)
         self.config = config
@@ -145,6 +152,16 @@ class SLAM:
         self.rcfg_map = (dataclasses.replace(self.rcfg, use_packed=True, slot_budget_per_tile=mb,
                                              saturation_feedback=sat_m, blend_bf16=bfb)
                          if mb else self.rcfg)
+        # active-prefix binning bucket (RenderConfig.bin_bucket) of those two
+        # configs: binning costs what the depth-sorted candidate arrays hold,
+        # and the map's capacity runs up to ~2.6x its active count, so the
+        # host slices them to ~1.25x the actives in steps of
+        # _bin_bucket_step (_update_bin_bucket). On by default off the CPU,
+        # as in the reference; _bin_bucket_freeze holds the bucket where it
+        # stands (for a timed window)
+        self._bin_bucket_step = 16384
+        self._bin_bucket_enable = perf.get("bin_active_bucket", not on_cpu)
+        self._bin_bucket_freeze = False
         # synced_timers: end each timed phase with a device synchronise so
         # the phase timers read device time (costs one sync per phase)
         self.synced_timers = bool(int(os.environ.get("LVDGS_SYNCED_TIMERS", "0"))) or perf.get(
@@ -289,10 +306,19 @@ class SLAM:
         self.do_color_refinement = res.get("color_refinement", True)
         self.color_refinement_iters = res.get("color_refinement_iters", 26000)
         self.do_eval_rendering = res.get("eval_rendering", True)
+        self.do_global_ba = res.get("global_BA", False)
+        self.global_ba_iters = tr.get("global_BA_itr_num", 500)
         # dynamic-object masker: get_static_mask(image (3, H, W) host array,
         # frame_idx) -> (H, W) bool host array, True = static
         self.masker = masker
         self._static_np: Dict[int, np.ndarray] = {}  # the last frame's host mask
+        # prior plug points: pose_prior(cam, last_kf_cam, slam) -> (R, T)
+        # seed or None; depth_prior(image) -> (H, W) mono depth (with
+        # `wants_kf`, depth_prior(image, last_kf_cam=...)); scale_remedy(cam,
+        # last_kf_cam) -> scale, asked when patch alignment degenerates
+        self.pose_prior = pose_prior
+        self.depth_prior = depth_prior
+        self.scale_remedy = scale_remedy
 
         # mutable state
         self.last_sent = 0  # idle-mapping counter (threaded mode)
@@ -343,7 +369,8 @@ class SLAM:
             self.iteration_count = res.iteration_count
             local_it += seg
             remaining -= seg
-            # densification may approach the capacity ceiling mid-run
+            # densification may approach the capacity ceiling mid-run (as in
+            # the reference, the bucket is not refreshed here: ROADMAP C4)
             if remaining > 0 and self.gmap.capacity < self.max_capacity:
                 if self.gmap.num_active > 0.7 * self.gmap.capacity:
                     self._grow_to(self.gmap.capacity * 2)
@@ -372,7 +399,19 @@ class SLAM:
     def _record_frame(self, idx: int, cam: Camera) -> None:
         self._store_frame_record(idx, self._pose_record(cam).cpu().numpy())
 
-    def _mono_depth_for(self, depth, mono) -> torch.Tensor:
+    def _mono_depth_for(self, image, depth, mono) -> torch.Tensor:
+        """The frame's mono depth: from the depth prior where there is one
+        (the reference takes it from MASt3R every frame), else per
+        Dataset.mono_depth_source."""
+        if self.depth_prior is not None:
+            if getattr(self.depth_prior, "wants_kf", False):
+                # the fused prior: one forward serves this depth and the
+                # pose seed's pair, so it takes the last keyframe's camera
+                last_kf_cam = self._cams.get(self.current_window[0]) if self.current_window else None
+                prior = self.depth_prior(image, last_kf_cam=last_kf_cam)
+            else:
+                prior = self.depth_prior(image)
+            return torch.as_tensor(np.asarray(prior), dtype=torch.float32, device=self.device)
         if self.mono_depth_source == "gt" and depth is not None:
             return torch.as_tensor(depth, dtype=torch.float32, device=self.device)
         if mono is not None:
@@ -389,7 +428,7 @@ class SLAM:
             depth=None if depth is None else torch.as_tensor(depth, **f32),
         )
         cam = cam.replace(
-            mono_depth=self._mono_depth_for(depth, mono),
+            mono_depth=self._mono_depth_for(image, depth, mono),
             grad_mask=compute_grad_mask(
                 cam.image,
                 self.config["Training"].get("edge_threshold", 1.1),
@@ -443,6 +482,13 @@ class SLAM:
 
     def _pose_seed(self, idx: int, cam: Camera) -> Camera:
         f32 = dict(dtype=torch.float32, device=self.device)
+        if self.pose_prior is not None:
+            last_cam = self._cams.get(self.current_window[0])
+            seed = self.pose_prior(cam, last_cam, self)
+            if seed is not None:
+                R, T = seed
+                return cam.update_RT(torch.as_tensor(np.asarray(R), **f32),
+                                     torch.as_tensor(np.asarray(T), **f32))
         mode = self.pose_seed_mode
         if mode == "gt":
             return cam.update_RT(cam.R_gt, cam.T_gt)
@@ -515,6 +561,14 @@ class SLAM:
         if init or render_depth is None:
             return torch.where(valid_rgb, cam.mono_depth, torch.zeros_like(cam.mono_depth)), cam
 
+        # the scale remedy, where patch alignment finds too few accurate
+        # pixels, over the newest window keyframe, as in the reference
+        remedy_fn = None
+        if self.scale_remedy is not None and self.current_window:
+            last_cam = self._cams.get(self.current_window[0])
+            if last_cam is not None:
+                remedy_fn = lambda: self.scale_remedy(cam, last_cam)  # noqa: E731
+
         dc = self.depth_cfg
         thr = dc.get("final_error_threshold", 0.15)
         fused, scale, _err, _nacc = process_depth(
@@ -525,6 +579,7 @@ class SLAM:
             error_threshold=dc.get("error_threshold", 0.1),
             final_error_threshold=thr,
             min_accurate_pixels_ratio=dc.get("min_accurate_pixels_ratio", 0.01),
+            remedy_fn=remedy_fn,
         )
         scale = float(scale)
         if self.mono_scale_anchor:
@@ -619,6 +674,28 @@ class SLAM:
             return self.gmap.num_active
         return self._cached_num_active
 
+    def _update_bin_bucket(self, lower_bound: int = 0) -> None:
+        """Re-bucket the tracking and mapping renders' binning
+        (RenderConfig.bin_bucket) to the live active count: grow at once to
+        at least 1.25x the bound, so that a seeding or densify burst cannot
+        outrun it within a run; shrink only with two full steps of slack.
+        0 bins at full capacity, where the bucket would save nothing. The
+        exact renders keep full binning."""
+        if not self._bin_bucket_enable or self._bin_bucket_freeze:
+            return
+        step = self._bin_bucket_step
+        cap = self.gmap.capacity
+        lb = max(self._num_active_cached(), lower_bound)
+        desired = -(-int(lb * 1.25) // step) * step
+        if desired >= cap - step // 2:
+            desired = 0
+        cur = self.rcfg_map.bin_bucket
+        cur_eff = cur if cur else cap
+        des_eff = desired if desired else cap
+        if des_eff > cur_eff or des_eff <= cur_eff - 2 * step or (cur and cur > cap):
+            self.rcfg_track = dataclasses.replace(self.rcfg_track, bin_bucket=desired)
+            self.rcfg_map = dataclasses.replace(self.rcfg_map, bin_bucket=desired)
+
     def _ensure_capacity(self, downsample: int) -> None:
         """Grow the map (powers of two, up to map_capacity) when the next
         seeding could approach saturation."""
@@ -632,6 +709,9 @@ class SLAM:
         target = min(target, self.max_capacity)
         if target > cap:
             self._grow_to(target)
+        # the seeding about to run can take the actives up to `need`: the
+        # bucket covers it before the next tracking or mapping render
+        self._update_bin_bucket(lower_bound=need)
 
     def _backend_init(self, idx: int, cam: Camera, depth) -> None:
         self._ensure_capacity(self.pcd_downsample_init)
@@ -685,6 +765,7 @@ class SLAM:
             self.occ_visibility[kf_idx] = occ[i]
         self._sync_backend()
         self._maybe_shrink()
+        self._update_bin_bucket()
         self._phase_sync()
         self._nan_scan(f"kf_prune[{idx}]")
         self.timer.toc("kf_prune")
@@ -991,6 +1072,22 @@ class SLAM:
         prof.stop()
         Log(f"profiler trace written to {profile_dir}")
 
+    def global_ba(self, iters: Optional[int] = None) -> None:
+        """Photometric global bundle adjustment over all stored keyframes
+        (global_ba_run), then the keyframe poses into the frame records."""
+        iters = iters or self.global_ba_iters
+        Log(f"Starting global BA ({iters} iters)")
+        global_ba_run(
+            self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
+            intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
+        )
+        self._sync_backend()
+        R, T = self.kfbuf.R.cpu().numpy(), self.kfbuf.T.cpu().numpy()
+        for kf_idx, slot in self.kf_slots.items():
+            self.frames[kf_idx]["R"] = R[slot]
+            self.frames[kf_idx]["T"] = T[slot]
+        Log("Global BA done")
+
     def color_refinement(self, iters: Optional[int] = None,
                          features_only: Optional[bool] = None) -> None:
         iters = iters or self.color_refinement_iters
@@ -1055,6 +1152,8 @@ class SLAM:
         fps = (n - start) / wall
 
         results = {"fps": fps, "n_frames": n, "n_keyframes": len(self.kf_indices)}
+        if self.do_global_ba:
+            self.global_ba()
         if self.do_color_refinement:
             self.color_refinement()
         if self.save_results:

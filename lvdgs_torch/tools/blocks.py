@@ -125,17 +125,19 @@ def main_path_track_block(slam, coarse: bool):
     return args, -(-ntx * nty // cfg.tile_group), ntx, cfg.slot_budget_per_tile
 
 
-def main_path_dense_block(slam):
+def main_path_dense_block(slam, intr=None):
     """The (K, T, 10) slot block and counts that a run's exact render of its
-    final map from the newest keyframe blends (dense, max_per_tile slots).
-    Returns (tp, counts, ntx)."""
+    final map from the newest keyframe blends (dense, max_per_tile slots),
+    at the run's intrinsics or `intr` (the pose prior renders the median
+    depth at the network's resolution). Returns (tp, counts, ntx)."""
     from ..ops import rasterizer as tr
 
+    intr = slam.intr if intr is None else intr
     p, active = slam.gmap.params(), slam.gmap.active
     slot = slam.kf_slots[slam.kf_indices[-1]]
-    ntx, nty = slam.rcfg.grid(slam.intr)
+    ntx, nty = slam.rcfg.grid(intr)
     proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active,
-                                slam.kfbuf.R[slot], slam.kfbuf.T[slot], slam.intr)
+                                slam.kfbuf.R[slot], slam.kfbuf.T[slot], intr)
     tile_idx, slot_valid = tr._bin_for(proj, slam.rcfg, ntx, nty)
     colors, opac = tr._blend_inputs(p, active)
     tp = tr._tile_params(tile_idx, proj["mean2d"], proj["conic"], colors, opac, proj["depth"])

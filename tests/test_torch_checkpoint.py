@@ -7,9 +7,9 @@ The port's CPU runs repeat bit for bit, so a run stopped after frame k and
 resumed in a fresh SLAM must end bit for bit equal to an unbroken run: the
 map and its Adam state, the keyframe buffer, every pose and the metrics.
 The reference's key set is enough for that on these runs; the state it
-leaves out (ROADMAP C9: `_last_resize_kf`, `_servo_obs` and the masker's
-history) is shown by the last tests, each where it changes what a resumed
-run does.
+leaves out (ROADMAP C9: `_last_resize_kf`, `_servo_obs`, the masker's
+history and, read by the MASt3R priors, `_cams`) is shown by the last
+tests, each where it changes what a resumed run does.
 """
 import copy
 import dataclasses
@@ -265,3 +265,41 @@ def test_unsaved_masker_history_changes_a_resumed_mask():
     masks = [run.get_static_mask(f, frame_idx=i) for i, f in enumerate(frames)]
     resumed = DynamicObjectMasker(use_flow=True).get_static_mask(frames[4], frame_idx=4)
     assert (masks[4] != resumed).any()
+
+
+def test_unsaved_cams_leave_a_resumed_prior_without_its_keyframe(tmp_path):
+    """`_cams` (the cameras of the window's keyframes) is not saved: with
+    the MASt3R priors, the frame after a resume gets no last keyframe
+    camera, so the fused depth prior runs its plain pair forward and the
+    pose prior gives no seed (tracking falls back to Training.pose_seed),
+    until the next keyframe; the unbroken run hands both priors the
+    keyframe. Recording priors that change nothing show it."""
+    cfg = _small_slam_config(5)
+    cfg["Results"]["color_refinement"] = False
+
+    def recording(log):
+        def depth_prior(image, last_kf_cam=None):
+            log.append(("depth", None if last_kf_cam is None else last_kf_cam.uid))
+            return np.zeros(tuple(image.shape[1:]), np.float32)
+
+        def pose_prior(cam, last_kf_cam, slam):
+            log.append(("pose", None if last_kf_cam is None else last_kf_cam.uid))
+            return None
+
+        depth_prior.wants_kf = True
+        return dict(depth_prior=depth_prior, pose_prior=pose_prior)
+
+    whole, resumed_log = [], []
+    run = SLAM(copy.deepcopy(cfg), device="cpu", **recording(whole))
+    for i in range(3):
+        run.process_frame(i)
+    path = str(tmp_path / "ck")
+    run.save_state(path)
+    kf = run.current_window[0]
+    run.process_frame(3)
+    resumed = SLAM(copy.deepcopy(cfg), device="cpu", **recording(resumed_log))
+    resumed.load_state(path)
+    assert resumed.current_window[0] == kf and resumed._cams == {}
+    resumed.process_frame(3)
+    assert whole[-2:] == [("depth", kf), ("pose", kf)]
+    assert resumed_log == [("depth", None), ("pose", None)]

@@ -461,16 +461,23 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
-    asks = [("Performance", "bin_active_bucket", True, "C4"),
-            ("Results", "global_BA", True, "A7"),
-            ("mast3r", "checkpoint", "weights.pth", "A12"),
-            ("Results", "save_depth_comparison", True, "A14"),
+    asks = [("Results", "save_depth_comparison", True, "A14"),
             ("Results", "viz_every", 1, "A14")]
     for section, key, value, item in asks:
         c = copy.deepcopy(cfg)
         c.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match=item):
             SLAM(c, device="cpu")
+    # carried since they were ported: the binning bucket (C4), global BA
+    # (A7) and the MASt3R checkpoint, whose priors python -m lvdgs_torch
+    # builds and hands to the constructor (A12)
+    c = copy.deepcopy(cfg)
+    c["Performance"]["bin_active_bucket"] = True
+    c["Results"]["global_BA"] = True
+    c["mast3r"] = {"checkpoint": "weights.pth"}
+    slam = SLAM(c, device="cpu")
+    assert slam._bin_bucket_enable and slam.do_global_ba
+    assert slam.pose_prior is slam.depth_prior is slam.scale_remedy is None
     # an explicit viz_every of 0 asks for no panels
     c = copy.deepcopy(cfg)
     c["Results"]["viz_every"] = 0
