@@ -47,6 +47,14 @@ Phases, each of which must pass:
    tracking and mapping renders of these runs bin the active prefix of
    the depth sort (the bucket, on by default on the card), whose value at
    each update is printed; then the dynamic street, stopped and resumed;
+   then the detector phase: GroundingDINO (Swin-T, BERT-base, 6+6 layers,
+   900 queries) and SAM (ViT-B) at full width with random weights, saved
+   in the official layouts and loaded through build_masker onto the card
+   (and onto the CPU), one detector forward and one segmenter call on
+   street frame 0 held against the CPU and timed, then the dynamic street
+   (20 frames) on that masker, handed the detector's first-ranked box a
+   frame, with no hook call raising, some frame's model mask kept by the
+   failsafe, B1, B3, B4 and B5 launched, and its ATE and PSNRs printed only;
    then the MASt3R prior path: street.yaml with make_fused_priors and
    make_scale_remedy over OracleMASt3R(depth_scale=0.9) and global BA,
    held to ATE < 0.5 m and PSNR > 17 dB after global BA, with PnP
@@ -148,6 +156,11 @@ PRIOR_ATE_LIMIT = 0.5
 # transformer blocks; the raw head map relative to its largest magnitude,
 # the unit descriptors absolute
 NET_RAW_TOL, NET_DESC_TOL = 1e-4, 1e-3
+# GroundingDINO and SAM on the card against their CPU selves: float32 with
+# TF32 off, in other summation orders through Swin-T, BERT and 12
+# transformer layers, or ViT-B and the two-way decoder; each raw output
+# relative to its largest magnitude (NET_RAW_TOL's measure)
+DETECTOR_TOL = 1e-4
 # the GT-mask render's pixels this close to the 0.5 coverage or opacity
 # threshold may flip between B1 and its plain version
 MASK_EDGE = 1e-5
@@ -1048,6 +1061,295 @@ def run_dynamic(device, frames: int, stop: int) -> dict:
     return launches
 
 
+def run_detector(device, frames: int) -> dict:
+    """Phase 3: the detector and segmenter models on the dynamic street.
+    GroundingDINOConfig() (Swin-T, BERT-base, 6 + 6 layers, 900 queries)
+    and SAMConfig() (ViT-B) with random weights from seeded
+    torch.Generators on the card, saved in the official layouts
+    (GroundingDINO's state dict under "model", SAM's bare) and loaded back
+    through build_masker's dynamic_filtering.grounding_dino_checkpoint and
+    sam_checkpoint: the masker's hooks must be the port's detector and
+    segmenter, their parameters on the card and equal to the saved ones.
+    On street frame 0, one detector forward and one segmenter call on the
+    card are held against the same files loaded onto the CPU (TF32 off):
+    GroundingDINO's raw logits and boxes and SAM's image embedding, mask
+    logits and IoU within DETECTOR_TOL of each output's largest magnitude
+    (where the card's top-900 differs from the CPU's, the count is printed
+    and the card's decoder is fed the CPU's indices); the detector's
+    forward at 800x256, SAM's encoder at 1024x1024 and its decoder at 1
+    and 32 boxes are timed (medians of 10 CUDA-event timings). Then
+    street.yaml with Dataset.dynamic_objects 3, packed as configured, runs
+    on that masker with its hooks counted (calls, boxes found and kept per
+    frame, SAM's mask share, raised exceptions, frames the saturation
+    failsafe rejected). Random weights score hundreds of boxes a frame at
+    1.0 and give each a SAM mask over much of the frame, so 32 boxes always
+    trip the failsafe (the mask is then dropped); the hook hands the masker
+    the detector's first-ranked box instead, one model mask a frame. No
+    call may raise, the failsafe must keep some frame's mask and some
+    keyframe must hold a masked pixel, B1, B3, B4 and B5 must launch, the
+    poses and map stay finite, at least 2 keyframes after init. ATE, PSNR
+    and static PSNR are printed, not held: random weights say nothing of
+    accuracy."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lvdgs_torch.core.config import load_config
+    from lvdgs_torch.data.datasets import load_dataset
+    from lvdgs_torch.eval.ate import eval_ate
+    from lvdgs_torch.models.groundingdino import model as gm
+    from lvdgs_torch.models.groundingdino.inference import GroundingDINODetector, load_detector
+    from lvdgs_torch.models.sam import model as sm
+    from lvdgs_torch.models.sam.inference import SAMSegmenter, load_segmenter
+    from lvdgs_torch.ops import rasterizer_cuda as rc
+    from lvdgs_torch.perception import build_masker
+    from lvdgs_torch.slam.system import SLAM
+    from lvdgs_torch.tools.timing import time_ms
+
+    label = "detector"
+    config = load_config(os.path.join(ROOT, "configs/mono/synthetic/street.yaml"))
+    config["Dataset"]["dynamic_objects"] = 3
+    n_frames_full = config["Dataset"]["n_frames"]
+    config["Dataset"]["n_frames"] = frames
+    config["Training"]["mono_scale_servo"] = False
+    config["Results"]["eval_rendering"] = True
+    config["Performance"]["synced_timers"] = True
+    cal = config["Dataset"]["Calibration"]
+
+    t0 = time.perf_counter()
+    made = {"GroundingDINO": gm.init_params(gm.GroundingDINOConfig(), torch.Generator(device=device).manual_seed(0),
+                                            device),
+            "SAM": sm.init_params(sm.SAMConfig(), torch.Generator(device=device).manual_seed(1), device)}
+    torch.cuda.synchronize()
+    saved = {name: {k: v.clone() for k, v in m.state_dict().items()} for name, m in made.items()}
+    tmp = tempfile.mkdtemp(prefix="lvdgs_detector_")
+    try:
+        paths = {"GroundingDINO": os.path.join(tmp, "groundingdino_swint_ogc.pth"),
+                 "SAM": os.path.join(tmp, "sam_vit_b_01ec64.pth")}
+        torch.save({"model": made["GroundingDINO"].state_dict()}, paths["GroundingDINO"])
+        torch.save(made["SAM"].state_dict(), paths["SAM"])
+        for name, m in made.items():
+            n = sum(p.numel() for p in m.parameters())
+            nbytes = sum(p.numel() * p.element_size() for p in m.parameters())
+            print(f"{label} models: {name} ({'Swin-T, BERT-base, 6+6 layers, 900 queries' if name != 'SAM' else 'ViT-B'}), "
+                  f"{n} parameters, {nbytes} parameter bytes, saved in the official layout "
+                  f"({os.path.getsize(paths[name])} bytes)", flush=True)
+        del made
+        torch.cuda.empty_cache()
+        config["dynamic_filtering"] = {"enabled": True, "scene_type": "outdoor_street", "use_sam": True,
+                                       "use_flow": True, "grounding_dino_checkpoint": paths["GroundingDINO"],
+                                       "sam_checkpoint": paths["SAM"]}
+        masker = build_masker(config, device)
+        det_cpu = load_detector(paths["GroundingDINO"], device="cpu")
+        seg_cpu = load_segmenter(paths["SAM"], device="cpu")
+    finally:
+        shutil.rmtree(tmp)
+    det, seg = masker.detector, masker.segmenter
+    if not (isinstance(det, GroundingDINODetector) and isinstance(seg, SAMSegmenter)):
+        fail(f"build_masker's hooks are {type(det).__name__} and {type(seg).__name__}, not the port's "
+             f"GroundingDINODetector and SAMSegmenter")
+    on_card = all(p.device.type == "cuda" for m in (det.model, seg.model) for p in m.parameters())
+    same = all(torch.equal(v, saved[name][k]) for name, m in (("GroundingDINO", det.model), ("SAM", seg.model))
+               for k, v in m.state_dict().items())
+    del saved
+    print(f"{label} models: loaded through build_masker in {time.perf_counter() - t0:.1f} s (init, save, "
+          f"load onto the card and the CPU, the masker's warm-up): parameters on the card {on_card}, equal "
+          f"to the saved ones {same}", flush=True)
+    if not (on_card and same):
+        fail("the masker's models are not on the card or differ from the saved weights")
+
+    # street frame 0 on the card against the CPU
+    ds = load_dataset(None, "", config, device)
+    img = masker._to_u8_hwc(ds[0][0])
+    prompt = masker.prompt_manager.get_dynamic_prompt()
+    t_cpu = time.perf_counter()
+    raw_cpu = det_cpu.forward_raw(img, prompt)
+    t_cpu = time.perf_counter() - t_cpu
+    raw = det.forward_raw(img, prompt)
+    topk, topk_cpu = raw["topk"].cpu(), raw_cpu["topk"]
+    differ = int((topk != topk_cpu).sum())
+    not_chosen = int((~torch.isin(topk, topk_cpu)).sum())
+
+    def rel(a, b):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            return float("inf")
+        return float((a[fin] - b[fin]).abs().max()) / float(b[fin].abs().max())
+
+    score_err = rel(raw["scores"], raw_cpu["scores"])
+    # sorted, the selection's scores on both devices: their gaps to the
+    # next score, against the card's error, say whether the orders can
+    # differ by rounding alone
+    ranked = raw_cpu["scores"][0].sort(descending=True).values[:det.cfg.num_queries + 1]
+    gap = float((ranked[:-1] - ranked[1:]).min())
+    if differ:
+        raw = det.forward_raw(img, prompt, topk=topk_cpu.to(device))
+    x = det.preprocess(img)
+    errs = {"logits": rel(raw["logits"], raw_cpu["logits"]), "boxes": rel(raw["boxes"], raw_cpu["boxes"]),
+            "selection scores": score_err}
+    ok = max(errs.values()) <= DETECTOR_TOL
+    print(f"{label} [GroundingDINO, street frame 0 at {x.shape[3]}x{x.shape[2]}, {len(det.text_inputs(prompt)[0])} "
+          f"prompt tokens]: the selection's {raw['scores'].shape[1]} token scores {score_err:.3e} of their largest "
+          f"magnitude against the CPU (the smallest gap between the CPU's top {det.cfg.num_queries + 1} sorted "
+          f"scores {gap:.3e}); top-{det.cfg.num_queries} positions differing from the CPU's: {differ}, indices the "
+          f"CPU did not choose: {not_chosen}{' (the card decoded the CPU indices)' if differ else ''}; raw logits "
+          f"{errs['logits']:.3e} and boxes "
+          f"{errs['boxes']:.3e} of their largest magnitude against the CPU (tolerance {DETECTOR_TOL:.0e}) "
+          f"{'ok' if ok else 'DISAGREES'}; the CPU's forward {t_cpu:.1f} s", flush=True)
+    if not ok:
+        fail("GroundingDINO on the card disagrees with the CPU")
+
+    xyxy, scores = det_cpu(img, prompt)
+    order = np.argsort(-scores)[:seg.MAX_BOXES]
+    boxes = xyxy[order] if len(order) else np.array([[400.0, 150.0, 800.0, 300.0]], np.float32)
+    xs, _ = seg.preprocess(img)
+    t_cpu = time.perf_counter()
+    emb_cpu = sm.sam_encode_image(seg_cpu.model, torch.as_tensor(xs))
+    masks_cpu, iou_cpu = sm.sam_predict_masks(seg_cpu.model, emb_cpu, seg_cpu.box_inputs(img, boxes))
+    t_cpu = time.perf_counter() - t_cpu
+    emb = sm.sam_encode_image(seg.model, torch.as_tensor(xs, device=device))
+    masks, iou = sm.sam_predict_masks(seg.model, emb, seg.box_inputs(img, boxes))
+    errs = {"embedding": rel(emb, emb_cpu), "mask logits": rel(masks, masks_cpu), "IoU": rel(iou, iou_cpu)}
+    ok = max(errs.values()) <= DETECTOR_TOL
+    print(f"{label} [SAM, street frame 0 at {seg.cfg.img_size}x{seg.cfg.img_size}, {len(boxes)} boxes]: image "
+          f"embedding {errs['embedding']:.3e}, mask logits {errs['mask logits']:.3e}, IoU {errs['IoU']:.3e} of "
+          f"their largest magnitude against the CPU (tolerance {DETECTOR_TOL:.0e}) {'ok' if ok else 'DISAGREES'}; "
+          f"the CPU's encoder and decoder {t_cpu:.1f} s", flush=True)
+    if not ok:
+        fail("SAM on the card disagrees with the CPU")
+    del det_cpu, seg_cpu, raw_cpu, emb_cpu, masks_cpu
+
+    # times on the card
+    ids, _, self_mask, pad_mask, position_ids = det.text_inputs(prompt)
+    targs = [torch.as_tensor(a, device=device)[None] for a in (ids, self_mask, pad_mask, position_ids)]
+    xt = torch.as_tensor(x, device=device)
+    det_ms = time_ms(lambda: gm.groundingdino_forward(det.model, xt, *targs[:3], targs[3]), reps=10, warmup=2)
+    xst = torch.as_tensor(xs, device=device)
+    enc_ms = time_ms(lambda: sm.sam_encode_image(seg.model, xst), reps=10, warmup=2)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(0, cal["width"] * 0.8, 32)
+    y0 = rng.uniform(0, cal["height"] * 0.8, 32)
+    b32 = seg.box_inputs(img, np.stack([x0, y0, x0 + rng.uniform(20, cal["width"] * 0.2, 32),
+                                        y0 + rng.uniform(20, cal["height"] * 0.2, 32)], 1).astype(np.float32))
+    dec_ms = {n: time_ms(lambda n=n: sm.sam_predict_masks(seg.model, emb, b32[:n]), reps=10, warmup=2)
+              for n in (1, 32)}
+    print(f"{label} times on the card (medians of 10 CUDA-event timings): GroundingDINO forward at "
+          f"{x.shape[3]}x{x.shape[2]} {det_ms:.3f} ms, SAM encoder at {seg.cfg.img_size}x{seg.cfg.img_size} "
+          f"{enc_ms:.3f} ms, SAM decoder at 1 box {dec_ms[1]:.3f} ms and at 32 boxes {dec_ms[32]:.3f} ms",
+          flush=True)
+    del emb, masks, xt, xst, b32
+    torch.cuda.empty_cache()
+
+    # the dynamic street on this masker, its hooks counted
+    stats = {name: {"calls": 0, "raised": 0, "errors": []} for name in ("detector", "segmenter")}
+    found, mask_share, host = [], [], []
+
+    def counted(name, fn, after):
+        def call(*args, **kw):
+            s = stats[name]
+            s["calls"] += 1
+            try:
+                out = fn(*args, **kw)
+            except Exception as e:
+                s["raised"] += 1
+                s["errors"].append(f"{type(e).__name__}: {e}")
+                raise
+            return after(out)
+        return call
+
+    def first_box(out):
+        xyxy, scores = out
+        found.append(int((scores >= masker.box_threshold).sum()))
+        first = np.argsort(-scores, kind="stable")[:1]
+        return xyxy[first], scores[first]
+
+    def share(masks):
+        mask_share.append(round(float(np.any(masks, axis=0).mean()), 3) if len(masks) else 0.0)
+        return masks
+
+    masker.detector = counted("detector", det, first_box)
+    masker.segmenter = counted("segmenter", seg, share)
+    get_mask = masker.get_static_mask
+
+    def timed_mask(*args, **kw):
+        t = time.perf_counter()
+        out = get_mask(*args, **kw)
+        host.append(time.perf_counter() - t)
+        return out
+
+    masker.get_static_mask = timed_mask
+    masker.saturated_frames = 0
+    slam = SLAM(config, save_dir=None, device=device, masker=masker)
+    print(f"{label} path: street.yaml at {cal['width']}x{cal['height']} with dynamic_objects 3, "
+          f"{len(slam.dataset._dynamic)} moving cars, packed budgets tracking "
+          f"{slam.rcfg_track.slot_budget_per_tile}, mapping {slam.rcfg_map.slot_budget_per_tile}, the masker "
+          f"build_masker made (GroundingDINO + SAM + flow); masked mapping loss {slam.mcfg.use_masked_loss}",
+          flush=True)
+    if frames != n_frames_full:
+        print(f"cut: Dataset.n_frames {n_frames_full} -> {frames}", flush=True)
+    if not (slam.mcfg.use_masked_loss and slam.rcfg_track.use_packed and slam.rcfg_map.use_packed):
+        fail(f"the {label} run does not render or mask as asked")
+    for w in rc.KERNEL_WRAPPERS:
+        w.launches.reset()
+    t0 = time.perf_counter()
+    results = slam.run(progress=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
+
+    ate = eval_ate(slam.frames, slam.kf_indices, None, frames, final=True, monocular=True)
+    n_after_init = len(slam.kf_indices) - 1
+    print(f"{label} path: {results['n_frames']} frames, {results['n_keyframes']} keyframes ({n_after_init} after "
+          f"init), {slam.gmap.num_active} active Gaussians, {results['fps']:.4f} fps ({wall:.1f} s); random "
+          f"weights, printed only: ATE RMSE {ate:.4f} m, PSNR {results.get('mean_psnr', float('nan')):.3f} dB, "
+          f"static PSNR {results.get('mean_psnr_static', float('nan')):.3f} dB over "
+          f"{results.get('n_eval_frames', 0)} frames", flush=True)
+    for name, t in results["timers"].items():
+        print(f"{label} timer {name}: {t['total_s']:.3f} s total, {t['count']} calls, {t['mean_ms']:.2f} ms mean",
+              flush=True)
+    ms = sorted(1e3 * h for h in host)
+    print(f"{label} path: masker host time per frame (detector, segmenter, flow, on the host clock): mean "
+          f"{np.mean(ms):.1f} ms, median {ms[len(ms) // 2]:.1f} ms, max {ms[-1]:.1f} ms over {len(ms)} frames",
+          flush=True)
+    print(f"{label} path: detector calls {stats['detector']['calls']}, raised {stats['detector']['raised']}; "
+          f"segmenter calls {stats['segmenter']['calls']}, raised {stats['segmenter']['raised']}; boxes at or over "
+          f"the box threshold per frame {found}, 1 handed on; SAM's mask share per frame {mask_share}; frames the "
+          f"saturation failsafe rejected {masker.saturated_frames}", flush=True)
+    shares = {k: round(float(np.mean(slam.frames[k]["static_mask"])), 4) for k in slam.kf_indices}
+    print(f"{label} path: keyframes {slam.kf_indices}, static share per keyframe {shares}", flush=True)
+    print(f"launches on the {label} path: {json.dumps(launches)}", flush=True)
+    for name, s in stats.items():
+        if s["raised"]:
+            fail(f"{label} path: the {name} raised {s['raised']} times, e.g. {s['errors'][:2]}")
+    if stats["detector"]["calls"] < frames:
+        fail(f"{label} path: the detector ran {stats['detector']['calls']} times over {frames} frames")
+    if masker.saturated_frames >= len(host):
+        fail(f"{label} path: the failsafe rejected all {len(host)} frames' masks; no model mask reached the map")
+    if all(bool(np.all(slam.frames[k]["static_mask"])) for k in slam.kf_indices):
+        fail(f"{label} path: every keyframe is all static; no model mask reached the map")
+    if det.device.type != "cuda" or seg.device.type != "cuda":
+        fail(f"{label} path: the models ran off the card")
+    if n_after_init < 2:
+        fail(f"{label} path: only {n_after_init} keyframes after init; the path needs at least 2")
+    for name in ("blend_forward", "median_depth", "packed_blend_forward", "packed_blend_backward"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was never launched on the {label} path")
+    poses = np.stack([np.concatenate([np.ravel(f["R"]), np.ravel(f["T"])]) for f in slam.frames.values()])
+    if not np.isfinite(poses).all():
+        fail(f"{label} path: non-finite pose")
+    for k, v in slam.gmap.params().items():
+        if not bool(torch.isfinite(v[slam.gmap.active]).all()):
+            fail(f"{label} path: non-finite map field {k}")
+    del slam, masker, det, seg
+    gc.collect()  # the timing wrapper closes a cycle through the masker
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_binning(slam) -> None:
     """One binning call (the tracking and mapping renders' dense slot
     selection) of the run's final map from its newest keyframe, with the
@@ -1450,7 +1752,8 @@ def check_default_budgets(device) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=20,
-                        help="street frames of the packed runs (float32, its rerun, and with the pyramid)")
+                        help="street frames of the packed runs (float32, its rerun, and with the pyramid) and of "
+                             "the dynamic, detector and prior runs")
     parser.add_argument("--bf16-frames", type=int, default=20,
                         help="street frames of the packed run with blend_bf16")
     parser.add_argument("--dense-frames", type=int, default=20,
@@ -1563,6 +1866,11 @@ def main() -> None:
         torch.cuda.empty_cache()
     # the dynamic street, stopped after half its frames and resumed
     for name, n in run_dynamic(device, args.frames, args.frames // 2).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    # the dynamic street again, on the masker build_masker makes with
+    # GroundingDINO and SAM at their full widths (random weights)
+    for name, n in run_detector(device, args.frames).items():
         launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
     # the MASt3R prior path over the oracle, with global BA; then B3 at the

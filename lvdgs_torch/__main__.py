@@ -1,7 +1,8 @@
 """Entry point: python -m lvdgs_torch --config configs/mono/synthetic/base_config.yaml
 
 Loads the layered YAML config, builds the dynamic-object masker
-(`dynamic_filtering`), the dataset, Gaussian map and SLAM system on the
+(`dynamic_filtering`; its `grounding_dino_checkpoint` and `sam_checkpoint`
+load GroundingDINO and SAM onto the device), the dataset, Gaussian map and SLAM system on the
 chosen device (CUDA by default), runs the SLAM loop, then colour
 refinement and the final evaluation. When `mast3r.checkpoint` names a file
 that exists, the MASt3R network is loaded from it onto the device and its
@@ -60,7 +61,8 @@ def main(argv=None):
         priors = dict(depth_prior=depth_prior, pose_prior=pose_prior, scale_remedy=make_scale_remedy(model))
         Log(f"MASt3R fused priors enabled from {ckpt}")
 
-    slam = SLAM(config, save_dir=save_dir, device=args.device, masker=build_masker(config), **priors)
+    slam = SLAM(config, save_dir=save_dir, device=args.device, masker=build_masker(config, args.device),
+                **priors)
     if args.no_color_refinement:
         slam.do_color_refinement = False
     if args.no_eval_rendering:

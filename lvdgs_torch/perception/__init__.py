@@ -1,17 +1,18 @@
 """Perception stack: dynamic-object masking (detector + segmenter + flow),
 with the reference's fallback ladder (port of ``lvdgs_tpu/perception``).
 
-`build_masker(config)` returns None when dynamic filtering is disabled and
-the masking ladder otherwise: without model hooks it runs the flow and
-first-frame heuristics, as the reference's import-guard ladder does
-(reference utils/slam_frontend.py:10-26, 303-306, 570-671). A configured
-GroundingDINO or SAM checkpoint raises NotImplementedError until ROADMAP
-A13 ports those models.
+`build_masker(config, device)` returns None when dynamic filtering is
+disabled and the masking ladder otherwise (reference
+utils/slam_frontend.py:10-26, 303-306, 570-671). A configured
+`grounding_dino_checkpoint` or `sam_checkpoint` loads GroundingDINO or SAM
+onto `device`, the card when None; a checkpoint that does not load leaves
+its hook empty, and the ladder runs without that model, as in the
+reference.
 """
 from __future__ import annotations
 
 
-def build_masker(config: dict):
+def build_masker(config: dict, device=None):
     df = config.get("dynamic_filtering", {}) or {}
     if not df.get("enabled", False):
         return None
@@ -26,4 +27,5 @@ def build_masker(config: dict):
         grounding_dino_checkpoint=df.get("grounding_dino_checkpoint"),
         sam_checkpoint=df.get("sam_checkpoint"),
         use_ground_segmentation=df.get("use_ground_segmentation", False),
+        device=device,
     )

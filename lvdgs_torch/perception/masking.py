@@ -22,9 +22,13 @@ Per frame (each stage optional, with the reference's fallbacks):
    is no detector.
 
 Without OpenCV the flow, the first-frame heuristic and the ground
-segmentation turn off, as in the reference. The model-backed hooks
-(GroundingDINO, SAM) wait for ROADMAP A13: a configured checkpoint raises
-NotImplementedError. Oracle hooks stand in for them (`oracle.py`).
+segmentation turn off, as in the reference. The model-backed hooks load
+GroundingDINO and SAM (`lvdgs_torch.models`) from configured checkpoints
+onto the masker's device (the card unless the caller asks for another);
+as in the reference, a checkpoint that does not load leaves its hook
+empty (the failure is logged). `HFGroundingDINODetector` is the detector
+through HuggingFace `transformers`, where that is installed. Oracle hooks
+stand in for the models in tests (`oracle.py`).
 """
 from __future__ import annotations
 
@@ -100,7 +104,9 @@ class DynamicObjectMasker:
 
     `detector(image_rgb_u8, prompt) -> (boxes_xyxy (N,4), scores (N,))` and
     `segmenter(image_rgb_u8, boxes) -> (N, H, W) bool` are pluggable model
-    hooks (a GroundingDINO / SAM port registers here, ROADMAP A13)."""
+    hooks; without them, configured checkpoints load GroundingDINO and SAM
+    onto `device` (the card when None). `saturated_frames` counts the
+    frames whose raw mask the hallucination failsafe rejected."""
 
     def __init__(
         self,
@@ -117,7 +123,9 @@ class DynamicObjectMasker:
         temporal_window: int = 5,
         use_ground_segmentation: bool = False,
         max_dynamic_ratio: float = 0.7,
+        device=None,
     ):
+        self.device = device
         self.use_ground_segmentation = use_ground_segmentation and cv2 is not None
         self.prompt_manager = ScenePromptManager(scene_type)
         self.use_sam = use_sam
@@ -131,6 +139,7 @@ class DynamicObjectMasker:
         self._prev_gray: Optional[np.ndarray] = None
         self._warned = False
         self._warned_saturated = False
+        self.saturated_frames = 0
         self.max_dynamic_ratio = max_dynamic_ratio
 
         if detector is None and grounding_dino_checkpoint:
@@ -161,14 +170,24 @@ class DynamicObjectMasker:
     # ------------------------------------------------------------ model hooks
 
     def _try_load_grounding_dino(self, ckpt: str):
-        raise NotImplementedError(
-            f"lvdgs_torch does not carry the GroundingDINO detector yet (ROADMAP A13); "
-            f"dynamic_filtering.grounding_dino_checkpoint={ckpt!r} cannot be loaded")
+        try:
+            from ..models.groundingdino.inference import load_detector
+
+            return load_detector(ckpt, device=self.device)
+        except Exception as e:
+            Log(f"WARNING: GroundingDINO checkpoint {ckpt!r} did not load ({type(e).__name__}: {e}) "
+                "— detection falls back to the flow ladder")
+            return None
 
     def _try_load_sam(self, ckpt: str):
-        raise NotImplementedError(
-            f"lvdgs_torch does not carry the SAM segmenter yet (ROADMAP A13); "
-            f"dynamic_filtering.sam_checkpoint={ckpt!r} cannot be loaded")
+        try:
+            from ..models.sam.inference import load_segmenter
+
+            return load_segmenter(ckpt, device=self.device)
+        except Exception as e:
+            Log(f"WARNING: SAM checkpoint {ckpt!r} did not load ({type(e).__name__}: {e}) "
+                "— box masks stay rectangles")
+            return None
 
     def warmup(self) -> dict:
         """Detector/segmenter init self-test (reference `_warmup_detector`,
@@ -287,6 +306,7 @@ class DynamicObjectMasker:
                 dynamic = self._refine_with_motion(img_u8, dynamic, motion_mask)
 
         if dynamic.mean() > self.max_dynamic_ratio:
+            self.saturated_frames += 1
             # hallucination failsafe: a detector claiming most of the frame
             # is moving is almost certainly wrong (untrained/broken weights,
             # prompt mismatch), and acting on it starves seeding/covisibility
@@ -517,8 +537,8 @@ class DynamicObjectMasker:
 
 # ---------------------------------------------------------------------------
 # 0817-era stretch surface (reference utils/slam_frontend_0817.py, SURVEY.md
-# §2.5: ground segmentation, shadow repair, colorful class visualization;
-# its HF-transformers GroundingDINO fallback waits for ROADMAP A13)
+# §2.5: ground segmentation, shadow repair, colorful class visualization,
+# the HF-transformers GroundingDINO fallback)
 
 
 def segment_ground(img_u8: np.ndarray) -> np.ndarray:
@@ -654,6 +674,55 @@ class ColorfulSegmentationVisualizer:
             mm = m.astype(bool)
             out[mm] = (1 - alpha) * out[mm] + alpha * color
         return out.clip(0, 255).astype(np.uint8)
+
+
+class HFGroundingDINODetector:
+    """GroundingDINO through HuggingFace `transformers`: the reference's
+    fallback when the native package or .pth is unavailable
+    (slam_frontend_0817.py:12-63, 955-975 `_load_hf_grounding_dino`).
+
+    The model must be cached locally (`HF_HOME`, or `model_id` a path); it
+    runs on `device` (the card when None). Construction degrades
+    gracefully: a model that does not load, or a missing device, gives a
+    detector that finds nothing (`ok` False)."""
+
+    def __init__(self, model_id: str = "IDEA-Research/grounding-dino-tiny",
+                 box_threshold: float = 0.35, text_threshold: float = 0.25, device=None):
+        self.ok = False
+        self.box_threshold = box_threshold
+        self.text_threshold = text_threshold
+        try:
+            # hub lookups probe the network even with local_files_only:
+            # offline mode up front
+            os.environ.setdefault("HF_HUB_OFFLINE", "1")
+            os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+            from transformers import AutoModelForZeroShotObjectDetection, AutoProcessor
+
+            from ..slam.system import resolve_device
+
+            self.device = resolve_device(device)
+            self.processor = AutoProcessor.from_pretrained(model_id, local_files_only=True)
+            self.model = AutoModelForZeroShotObjectDetection.from_pretrained(
+                model_id, local_files_only=True).to(self.device).eval()
+            self.ok = True
+        except Exception as e:
+            Log(f"WARNING: HF GroundingDINO {model_id!r} did not load ({type(e).__name__}: {e})")
+            self.processor = self.model = None
+
+    def __call__(self, img_u8: np.ndarray, prompt: str):
+        """-> (boxes_xyxy (N, 4), scores (N,)), empty when not loaded."""
+        if not self.ok:
+            return np.zeros((0, 4), np.float32), np.zeros((0,), np.float32)
+        import torch
+
+        inputs = self.processor(images=img_u8, text=prompt, return_tensors="pt").to(self.device)
+        with torch.no_grad():
+            outputs = self.model(**inputs)
+        res = self.processor.post_process_grounded_object_detection(
+            outputs, inputs["input_ids"], threshold=self.box_threshold,
+            text_threshold=self.text_threshold, target_sizes=[img_u8.shape[:2]])[0]
+        return (res["boxes"].cpu().numpy().astype(np.float32),
+                res["scores"].cpu().numpy().astype(np.float32))
 
 
 class IntervalMasker:

@@ -43,7 +43,12 @@ def test_every_module_imports_without_gpu_or_nvcc():
         "           'lvdgs_torch.perception.oracle', 'lvdgs_torch.perception.dynamic_filter',\n"
         "           'lvdgs_torch.models.mast3r.vit', 'lvdgs_torch.models.mast3r.dpt',\n"
         "           'lvdgs_torch.models.mast3r.model', 'lvdgs_torch.models.mast3r.matching',\n"
-        "           'lvdgs_torch.models.mast3r.inference', 'lvdgs_torch.models.mast3r.oracle'} - set(names)\n"
+        "           'lvdgs_torch.models.mast3r.inference', 'lvdgs_torch.models.mast3r.oracle',\n"
+        "           'lvdgs_torch.ops.msda', 'lvdgs_torch.models.groundingdino.swin',\n"
+        "           'lvdgs_torch.models.groundingdino.bert', 'lvdgs_torch.models.groundingdino.model',\n"
+        "           'lvdgs_torch.models.groundingdino.convert', 'lvdgs_torch.models.groundingdino.inference',\n"
+        "           'lvdgs_torch.models.sam.model', 'lvdgs_torch.models.sam.convert',\n"
+        "           'lvdgs_torch.models.sam.inference'} - set(names)\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "assert not bad, bad\n"
@@ -56,7 +61,18 @@ def test_every_module_imports_without_gpu_or_nvcc():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 48
+    assert int(out.stdout.split()[-1]) >= 59
+
+
+def test_packaged_vocab_is_the_ports_own_copy():
+    """The tokenizer's packaged prompt-lexicon vocab lies in lvdgs_torch, a
+    byte-for-byte copy of the reference's asset."""
+    from lvdgs_torch.models.groundingdino import inference
+
+    ours = Path(inference._PACKAGED_VOCAB)
+    assert ours.is_file() and ours.resolve().is_relative_to(ROOT / "lvdgs_torch")
+    ref = ROOT / "lvdgs_tpu" / "models" / "groundingdino" / "assets" / "prompt_vocab.txt"
+    assert ours.read_bytes() == ref.read_bytes()
 
 
 def test_kernel_sources_are_in_the_package():

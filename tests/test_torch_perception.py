@@ -181,19 +181,105 @@ def test_dynamic_filter_matches_reference():
     assert TF().prompt == JF().prompt
 
 
-def test_build_masker_and_model_hooks_wait_for_a13():
-    """build_masker as the reference's; a configured GroundingDINO or SAM
-    checkpoint raises NotImplementedError naming A13 (the reference's ladder
-    swallows the failure and runs without the model)."""
+def _tiny_checkpoints(tmp_path, monkeypatch):
+    """TINY GroundingDINO and SAM, random, written in the official layouts
+    (GroundingDINO's state dict under "model", SAM's bare); the loaders'
+    default configs set to TINY."""
+    from lvdgs_torch.models.groundingdino import convert as gconv
+    from lvdgs_torch.models.groundingdino import model as gm
+    from lvdgs_torch.models.sam import convert as sconv
+    from lvdgs_torch.models.sam import model as sm
+
+    monkeypatch.setattr(gconv, "GroundingDINOConfig", lambda: gm.TINY_GDINO)
+    monkeypatch.setattr(sconv, "SAMConfig", lambda: sm.TINY)
+    gd, sam = tmp_path / "groundingdino.pth", tmp_path / "sam.pth"
+    torch.save({"model": gm.init_params(gm.TINY_GDINO, torch.Generator().manual_seed(0), "cpu").state_dict()}, gd)
+    torch.save(sm.init_params(sm.TINY, torch.Generator().manual_seed(1), "cpu").state_dict(), sam)
+    return str(gd), str(sam)
+
+
+def test_build_masker_and_model_hooks_load_the_ports_models(tmp_path, monkeypatch):
+    """build_masker as the reference's; configured checkpoints load the
+    port's GroundingDINO and SAM onto the asked device; a missing, broken
+    or incomplete file leaves the hook empty (the reference's ladder then
+    runs without the model), and so does a missing card when no device is
+    asked for."""
+    from lvdgs_torch.models.groundingdino.inference import GroundingDINODetector
+    from lvdgs_torch.models.sam.inference import SAMSegmenter
+
     assert build_masker({}) is None and jbuild({}) is None
     cfg = {"dynamic_filtering": {"enabled": True, "scene_type": "highway", "use_flow": False}}
     m, mj = build_masker(cfg), jbuild(cfg)
     assert isinstance(m, tm.DynamicObjectMasker)
     assert m.prompt_manager.get_dynamic_prompt() == mj.prompt_manager.get_dynamic_prompt()
     assert (m.use_flow, m.use_sam, m.detector, m.segmenter) == (False, True, None, None)
-    for key in ("grounding_dino_checkpoint", "sam_checkpoint"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            build_masker({"dynamic_filtering": {"enabled": True, key: "weights.pth"}})
+
+    gd, sam = _tiny_checkpoints(tmp_path, monkeypatch)
+    df = {"enabled": True, "scene_type": "parking", "use_flow": False, "grounding_dino_checkpoint": gd,
+          "sam_checkpoint": sam}
+    m = build_masker({"dynamic_filtering": df}, device="cpu")
+    assert isinstance(m.detector, GroundingDINODetector) and isinstance(m.segmenter, SAMSegmenter)
+    for model in (m.detector.model, m.segmenter.model):
+        assert all(p.device.type == "cpu" for p in model.parameters())
+    assert m.warmup()["detector_ok"] and m.warmup()["segmenter_ok"]
+
+    broken = tmp_path / "broken.pth"
+    broken.write_bytes(b"not a checkpoint")
+    incomplete = tmp_path / "incomplete.pth"
+    sd = torch.load(sam, weights_only=True)
+    del sd["mask_decoder.iou_token.weight"]
+    torch.save(sd, incomplete)
+    for bad in (str(tmp_path / "missing.pth"), str(broken), str(incomplete)):
+        m = build_masker({"dynamic_filtering": {**df, "grounding_dino_checkpoint": bad, "sam_checkpoint": bad}},
+                         device="cpu")
+        assert (m.detector, m.segmenter) == (None, None), bad
+    if not torch.cuda.is_available():
+        m = build_masker({"dynamic_filtering": df})
+        assert (m.detector, m.segmenter) == (None, None)
+
+
+@pytest.fixture(scope="module")
+def hf_model_dir(tmp_path_factory):
+    """A tiny random HF GroundingDINO and its processor (a WordPiece vocab
+    holding the prompt's words), saved for from_pretrained."""
+    transformers = pytest.importorskip("transformers")
+    from transformers import BertConfig, BertTokenizerFast, GroundingDinoConfig, GroundingDinoForObjectDetection
+    from transformers import GroundingDinoImageProcessor, GroundingDinoProcessor, SwinConfig
+
+    d = tmp_path_factory.mktemp("hf_gdino")
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", "car", "person", "truck", "bus"]
+    (d / "vocab.txt").write_text("\n".join(words) + "\n")
+    tok = BertTokenizerFast(vocab_file=str(d / "vocab.txt"), do_lower_case=True)
+    proc = GroundingDinoProcessor(image_processor=GroundingDinoImageProcessor(
+        size={"shortest_edge": 64, "longest_edge": 96}), tokenizer=tok)
+    swin = SwinConfig(image_size=96, patch_size=4, embed_dim=16, depths=[1, 1, 1, 1], num_heads=[1, 2, 4, 8],
+                      window_size=2, drop_path_rate=0.0, out_features=["stage2", "stage3", "stage4"])
+    bert = BertConfig(vocab_size=len(words), hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                      intermediate_size=64, max_position_embeddings=64)
+    cfg = GroundingDinoConfig(backbone_config=swin, text_config=bert, num_queries=10, encoder_layers=1,
+                              decoder_layers=1, encoder_ffn_dim=64, decoder_ffn_dim=64,
+                              encoder_attention_heads=2, decoder_attention_heads=2, d_model=32,
+                              encoder_n_points=2, decoder_n_points=2, max_text_len=32, dropout=0.0)
+    torch.manual_seed(0)
+    GroundingDinoForObjectDetection(cfg).eval().save_pretrained(d)
+    proc.save_pretrained(d)
+    return str(d)
+
+
+def test_hf_detector_matches_reference(hf_model_dir):
+    img = (np.random.default_rng(8).uniform(0, 255, (48, 64, 3))).astype(np.uint8)
+    kw = dict(box_threshold=0.0, text_threshold=0.0)
+    ours = tm.HFGroundingDINODetector(hf_model_dir, device="cpu", **kw)
+    ref = jm.HFGroundingDINODetector(hf_model_dir, **kw)
+    assert ours.ok and ref.ok
+    assert next(ours.model.parameters()).device.type == "cpu"
+    (tb, ts), (jb, js) = ours(img, "car . person ."), ref(img, "car . person .")
+    assert len(tb) == len(jb) > 0
+    np.testing.assert_array_equal(tb, jb)
+    np.testing.assert_array_equal(ts, js)
+    # a model that is not there gives a detector that finds nothing
+    missing = tm.HFGroundingDINODetector(hf_model_dir + "/missing", device="cpu")
+    assert not missing.ok and missing(img, "car .")[0].shape == (0, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -482,16 +482,18 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     c = copy.deepcopy(cfg)
     c["Results"]["viz_every"] = 0
     SLAM(c, device="cpu")
-    # dynamic filtering is carried (A11): the config builds its masker, and
-    # only a configured detector or segmenter checkpoint waits (A13)
+    # dynamic filtering is carried (A11), and so are the detector and
+    # segmenter checkpoints (A13): one that does not load leaves its hook
+    # empty, as the reference's ladder does
     from lvdgs_torch.perception import build_masker
 
     c = copy.deepcopy(cfg)
     c["dynamic_filtering"] = {"enabled": True}
     assert SLAM(c, device="cpu", masker=build_masker(c)).mcfg.use_masked_loss
     c["dynamic_filtering"]["grounding_dino_checkpoint"] = "weights.pth"
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_masker(c)
+    c["dynamic_filtering"]["sam_checkpoint"] = "weights.pth"
+    masker = build_masker(c, device="cpu")
+    assert masker.detector is None and masker.segmenter is None
     # the bf16 packed blend is carried: it reaches the two optimiser-facing
     # render configs (packed here), not the exact renders' config
     c = copy.deepcopy(cfg)
