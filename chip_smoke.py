@@ -41,6 +41,11 @@ Phases, each of which must pass:
    launch shapes: the coarse stage blends 613x185 in 468 tiles, 30 groups,
    at 192 slots per tile, NB 180); each must end with finite poses and map,
    at least 2 keyframes after init, ATE RMSE < 0.08 m and PSNR > 17 dB;
+   the first, as configured, also saves its results with the GUI feed
+   (every tracked frame), the depth comparisons and the eval panels on,
+   and must write the reference's files, one per frame (a); its state,
+   saved, goes through python -m lvdgs_torch.tools.colmap_export with
+   oracle keyframe matches, and the database must hold the run (b);
    right after the pyramid run, hold B4 (with touch counts, without, and
    as the probe) and B5 against their plain versions at the coarse stage's
    pack of its final map from the newest keyframe, and time them; the
@@ -64,7 +69,14 @@ Phases, each of which must pass:
    official checkpoint's layout and loaded back onto the card and the
    CPU, its fused forward on two street frames at 512x144 held against
    the CPU and against the two unfused forwards, and its fused priors run
-   once on the card (B3 at 32x9); one binning call of the packed run's
+   once on the card (B3 at 32x9); between the two, MASt3R's cloud
+   optimisation on the prior run's keyframes at 512x144 from the oracle's
+   depths and matches (sparse global alignment, 500 + 500 Adam steps,
+   held to tests/test_cloud_opt.py's bars; its first 20 steps against the
+   CPU; one TSDF refinement pass) (c); after the network, coarse-to-fine
+   matching with it on two full-resolution street frames (d), and DINOv2
+   (ViT-B/14, random weights in the torch.hub layout) on street frame 0 at
+   1218x364 against the CPU (e); one binning call of the packed run's
    final map with the bucket and without, equal bins, both timed; then
    hold the kernels against their plain versions again on the slots the
    packed and the
@@ -74,8 +86,8 @@ Phases, each of which must pass:
    measure (image and parameter gradients), and the gather's transpose on
    them against index_select's (its own sum must repeat bit for bit); then
    drive the float32 street run once more with the bucket off
-   (Performance.bin_active_bucket: False), which must end with the first,
-   bucketed, run's map and poses bit for bit; then drive the resident-table probe
+   (Performance.bin_active_bucket: False) and without the feed and the
+   panels, which must end with the first run's map and poses bit for bit; then drive the resident-table probe
    (python -m lvdgs_torch.tools.perf_resident), which must launch R1 and R2;
 4. print the per-kernel JSON line (B4 and B5 also at the coarse pack, under
    their own names, with the coarse stage's launches), then the result
@@ -755,14 +767,16 @@ def log_buckets(slam) -> list:
 
 
 def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits: bool = True,
-             pyramid: bool = False, bucket: bool = True):
+             pyramid: bool = False, bucket: bool = True, feed: str | None = None):
     """Phase 3: the SLAM main path on the street scene, as configured
     (packed), as configured with blend_bf16 (bf16) or with
     Training.track_pyramid (pyramid), or with both packed budgets at 0
     (dense). The tracking and mapping renders bin the active prefix (the
     bucket, on by default on the card) unless `bucket` is False
     (Performance.bin_active_bucket). Without `hold_limits` an ATE or PSNR
-    miss is printed and does not fail."""
+    miss is printed and does not fail. With `feed` (a directory), the run
+    saves its results there with the GUI feed (every tracked frame), the
+    depth comparisons and the eval panels on (check_feed)."""
     import numpy as np
     import torch
 
@@ -784,10 +798,13 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     config["Training"]["mono_scale_servo"] = False
     config["Training"]["track_pyramid"] = pyramid
     config["Results"]["eval_rendering"] = True
+    if feed:
+        config["Results"].update(FEED_KEYS)
     n_frames_full = config["Dataset"]["n_frames"]
     config["Dataset"]["n_frames"] = frames
     cal = config["Dataset"]["Calibration"]
-    slam = SLAM(config, save_dir=None, device=device)
+    slam = SLAM(config, save_dir=feed, device=device)
+    feed_cost = time_feed(slam) if feed else None
     budgets = (f"tracking {slam.rcfg_track.slot_budget_per_tile} (feedback "
                f"{slam.rcfg_track.saturation_feedback}), mapping {slam.rcfg_map.slot_budget_per_tile} "
                f"(feedback {slam.rcfg_map.saturation_feedback})" if packed else "0")
@@ -807,7 +824,11 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
     for w in rc.KERNEL_WRAPPERS:
         w.launches.reset()
     t0 = time.perf_counter()
-    results = slam.run(progress=True)
+    try:
+        results = slam.run(progress=True)
+    finally:
+        if feed:
+            feed_cost.restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches.count for w in rc.KERNEL_WRAPPERS}
@@ -890,6 +911,8 @@ def run_slam(device, frames: int, packed: bool, bf16: bool = False, hold_limits:
             fail(f"{label} path: {miss}")
         if not ok:
             print(f"{label} path: {miss} (printed only in this mode)", flush=True)
+    if feed:
+        check_feed(slam, results, frames, feed_cost)
     return launches, slam
 
 
@@ -1558,7 +1581,7 @@ def check_median_subres(slam, hw=(144, 512)) -> dict:
     return r
 
 
-def run_network(device, slam) -> None:
+def run_network(device, slam):
     """The MASt3R network at its full published width (MASt3RConfig(),
     ViT-L encoder, ViT-B decoder), random weights from a seeded
     torch.Generator: saved as the official checkpoint is laid out (its
@@ -1571,7 +1594,8 @@ def run_network(device, slam) -> None:
     normalised descriptors within NET_DESC_TOL) and against the two
     unfused forwards on the card; the fused priors then run once on the
     card over the prior run's final map, whose pose prior renders B3 at
-    the network's 32x9 tiles."""
+    the network's 32x9 tiles. Returns the card's MASt3RInference (for the
+    coarse-to-fine phase)."""
     import argparse
     import shutil
     import tempfile
@@ -1676,8 +1700,412 @@ def run_network(device, slam) -> None:
           f"(T, ntx) {({str(k): n for k, n in b3.items()})}", flush=True)
     if b3.get(sub, 0) == 0:
         fail(f"the pose prior did not launch B3 at the network's {sub[1]}x{sub[0] // sub[1]} tiles")
-    del card, host
+    del host
     torch.cuda.empty_cache()
+    return card
+
+
+# the outputs that only read the state, on for the first float32 street run
+FEED_KEYS = {"save_results": True, "use_gui": True, "gui_every": 1, "save_depth_comparison": True}
+# the sparse global alignment's first Adam steps on the card against the
+# CPU: float32 in other summation orders through 20 Adam steps, relative to
+# the scene's scale (Adam's normalised first step turns rounding-level
+# gradient differences into at most rounding-level parameter differences)
+GA_STEPS, GA_TOL = 20, 1e-4
+# the bars of tests/test_cloud_opt.py::test_sparse_ga_recovers_geometry
+GA_CENTRE_BAR, GA_DIST_BAR = 0.25, 0.2
+# DINOv2 (ViT-B/14, 12 blocks) on the card against its CPU self: float32
+# with TF32 off in other summation orders; the final tokens relative to
+# their largest magnitude (NET_RAW_TOL's measure), each block's tokens
+# relative to that block's own update (block 0: to its tokens), each
+# block's attention probabilities absolute
+DINO_TOL, DINO_ATTN_TOL = 1e-4, 1e-5
+
+
+class time_feed:
+    """Host seconds that a SLAM's outputs which only read the state take:
+    the GUI packets (each tracked frame's render brought to the host, a
+    keyframe's map snapshot), the viewer's closing (its writer thread
+    draining), the depth comparisons, and the eval's render dumps and
+    six-panel figures; `restore` puts the wrapped functions back."""
+
+    def __init__(self, slam):
+        from lvdgs_torch.eval import rendering, viz
+
+        self.s = {"packets": 0.0, "viewer close": 0.0, "depth comparisons": 0.0, "render dumps": 0.0,
+                  "six panels": 0.0}
+        self.n = dict.fromkeys(self.s, 0)
+        self._undo = []
+        for owner, name, key in ((slam, "_feed_viewer", "packets"), (slam.viewer, "close", "viewer close"),
+                                 (viz, "save_depth_comparison", "depth comparisons"),
+                                 (rendering, "_dump_frame", "render dumps"), (viz, "six_panel", "six panels")):
+            self._wrap(owner, name, key)
+
+    def _wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+        own = name in vars(owner)  # a module's function, not an instance's method
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+                self.n[key] += 1
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn, own))
+
+    def restore(self):
+        for owner, name, fn, own in self._undo:
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def check_feed(slam, results, frames: int, cost) -> None:
+    """Phase 3 (a): the first float32 street run with Results.save_results,
+    use_gui (every tracked frame), save_depth_comparison and the default
+    viz_every: one render dump (PNG and depth) and one six-panel figure per
+    evaluated frame, one depth comparison per fused keyframe, one
+    trajectory.jsonl record per tracked frame and the map's PLY, read back
+    by the unchanged tools/replay_viewer.py (and composed where matplotlib
+    is installed); prints the seconds they cost. The run at the end of the script, without these keys, must
+    end on this run's map and poses bit for bit (the feed changes
+    nothing)."""
+    import importlib.util
+
+    root = slam.save_dir
+    n_eval, fused = results.get("n_eval_frames", 0), len(slam.kf_indices) - 1
+
+    def count(sub, pred=lambda f: True):
+        d = os.path.join(root, sub)
+        return sum(pred(f) for f in os.listdir(d)) if os.path.isdir(d) else 0
+
+    # the feed through the unchanged tools/replay_viewer.py: its readers,
+    # and its composite where matplotlib is installed
+    spec = importlib.util.spec_from_file_location("replay_viewer", os.path.join(ROOT, "tools", "replay_viewer.py"))
+    replay = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(replay)
+    gui = os.path.join(root, "gui")
+    records = replay.read_trajectory(os.path.join(gui, "trajectory.jsonl"))
+    xyz, _rgb = replay.read_ply(os.path.join(gui, "live_map.ply"))
+    try:
+        import matplotlib  # noqa: F401
+        composed = replay.compose(gui, os.path.join(root, "replay.png"))
+    except ImportError:
+        composed = "not composed: the viewer's composite needs matplotlib, which is not installed here"
+    got = {"six panels": count("panels_final"), "render PNGs": count("renders_final", lambda f: f.endswith(".png")),
+           "depth dumps": count("renders_final", lambda f: f.endswith(".npy")),
+           "depth comparisons": count("depth_comparison"), "trajectory records": len(records),
+           "tracked frames recorded": sorted(r["frame"]["uid"] for r in records),
+           "live renders": count("gui", lambda f: f.startswith("live_0")), "map PLY points > 0": len(xyz) > 0}
+    want = {"six panels": n_eval, "render PNGs": n_eval, "depth dumps": n_eval, "depth comparisons": fused,
+            "trajectory records": frames - 1, "tracked frames recorded": list(range(1, frames)),
+            "live renders": frames - 1, "map PLY points > 0": True}
+    total = sum(cost.s.values())
+    print(f"feed and panels [packed run, {frames} frames, {n_eval} evaluated, {fused} fused keyframes]: "
+          f"{json.dumps(got)} (expected {json.dumps(want)}); map PLY {len(xyz)} points; replay_viewer composite: "
+          f"{composed} records; host seconds { {k: round(v, 4) for k, v in cost.s.items()} } over calls {cost.n}, "
+          f"{total:.3f} s in all", flush=True)
+    if got != want:
+        fail("the feed and the panels did not write one file per frame as the reference does")
+
+
+def run_colmap_export(slam) -> None:
+    """Phase 3 (b): the first street run's state saved and exported through
+    python -m lvdgs_torch.tools.colmap_export (its main, in this process)
+    with --match-keyframes through the oracle; database.db read back with
+    sqlite3: one camera, one image per frame, a non-empty match list for
+    each consecutive keyframe pair; points3D.txt one line per active
+    Gaussian."""
+    import copy
+    import sqlite3
+
+    import yaml
+
+    from lvdgs_torch.tools import colmap_export
+
+    root = slam.save_dir
+    state, cfg_path, out = (os.path.join(root, n) for n in ("state.pt", "config.yaml", "colmap"))
+    t0 = time.perf_counter()
+    slam.save_state(state)
+    config = copy.deepcopy(slam.config)
+    config["Results"].update({k: False for k in FEED_KEYS})
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(config, fh)
+    os.environ.pop("LVDGS_MAST3R_CKPT", None)  # the oracle, not a checkpoint
+    colmap_export.main(["--config", cfg_path, "--checkpoint", state, "--out", out, "--match-keyframes",
+                        "--device", str(slam.device)])
+    seconds = time.perf_counter() - t0
+    conn = sqlite3.connect(os.path.join(out, "database.db"))
+    cams = conn.execute("SELECT COUNT(*) FROM cameras").fetchone()[0]
+    images = conn.execute("SELECT COUNT(*) FROM images").fetchone()[0]
+    matches = [r for (r,) in conn.execute("SELECT rows FROM matches ORDER BY pair_id")]
+    kps = conn.execute("SELECT COUNT(*) FROM keypoints").fetchone()[0]
+    conn.close()
+    with open(os.path.join(out, "sparse", "points3D.txt")) as fh:
+        points = sum(1 for ln in fh if not ln.startswith("#"))
+    pairs = len(slam.kf_indices) - 1
+    ok = (cams == 1 and images == len(slam.frames) and len(matches) == pairs and min(matches, default=0) > 0
+          and points == slam.gmap.num_active)
+    print(f"colmap export [keyframes {sorted(slam.kf_indices)}]: {cams} camera, {images} images "
+          f"({len(slam.frames)} frames), matches per keyframe pair {matches}, {kps} images with keypoints, "
+          f"{points} points ({slam.gmap.num_active} active Gaussians); {seconds:.2f} s with the save "
+          f"{'ok' if ok else 'WRONG'}", flush=True)
+    if not ok:
+        fail("the COLMAP export of the street run is not the run")
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cloud_opt_problem(slam, hw=(144, 512), subsample: int = 8):
+    """Phase 3 (c)'s inputs: the prior run's keyframes (at least 4) at the
+    prior path's 512x144, their OracleMASt3R depths (ground truth, nearest
+    samples) and descriptors, matched pairwise on the SLAM's device by
+    fast_reciprocal_nns; the ground-truth camera centres."""
+    import numpy as np
+
+    from lvdgs_torch.models.mast3r.matching import fast_reciprocal_nns
+    from lvdgs_torch.models.mast3r.oracle import OracleMASt3R
+
+    ds, intr = slam.dataset, slam.intr
+    kfs = sorted(slam.kf_indices)
+    if len(kfs) < 4:
+        fail(f"the prior run has {len(kfs)} keyframes; cloud optimisation needs at least 4")
+    H, W = hw
+    ys = ((np.arange(H) + 0.5) * intr.height / H).astype(np.int64)
+    xs = ((np.arange(W) + 0.5) * intr.width / W).astype(np.int64)
+    oracle = OracleMASt3R(ds, intr)
+    depths, descs, centres = [], [], []
+    for k in kfs:
+        pts_cam, pts_world = oracle._frame_geometry(k)
+        depths.append(np.ascontiguousarray(pts_cam[ys][:, xs, 2]))
+        descs.append(oracle._desc(pts_world[ys][:, xs]))
+        pose = np.asarray(ds.poses[k], np.float64)
+        centres.append(-pose[:3, :3].T @ pose[:3, 3])
+    pairs = []
+    for i in range(len(kfs)):
+        for j in range(i + 1, len(kfs)):
+            m1, m2 = fast_reciprocal_nns(descs[i], descs[j], subsample=subsample, device=slam.device)
+            if len(m1):
+                pairs.append((i, j, m1.astype(np.float32), m2.astype(np.float32), np.ones(len(m1), np.float32)))
+    sub = intr.scaled(W, H)
+    N = len(kfs)
+    kw = dict(imsizes=np.tile([[W, H]], (N, 1)), base_focals=np.full(N, sub.fx), pps=np.tile([[sub.cx, sub.cy]], (N, 1)),
+              canonical_depths=[d[subsample // 2::subsample, subsample // 2::subsample] for d in depths],
+              pair_matches=pairs, subsample=subsample)
+    return kfs, kw, np.stack(depths), np.stack(centres), sub
+
+
+def _centre_errors(c_gt, c_est):
+    """(largest Umeyama residual over the scene's scale, largest normalised
+    pairwise-distance error) of estimated camera centres against the truth:
+    the measures of tests/test_cloud_opt.py."""
+    import numpy as np
+
+    mu_g, mu_e = c_gt.mean(0), c_est.mean(0)
+    g0, e0 = c_gt - mu_g, c_est - mu_e
+    U, D, Vt = np.linalg.svd(e0.T @ g0)
+    Smat = np.diag([1, 1, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ Smat @ Vt
+    s = (D * np.diag(Smat)).sum() / max((e0**2).sum(), 1e-12)
+    resid = np.linalg.norm(s * e0 @ R - g0, axis=-1).max() / np.linalg.norm(g0, axis=-1).mean()
+    d_gt = np.linalg.norm(c_gt[:, None] - c_gt[None], axis=-1)
+    d_est = np.linalg.norm(c_est[:, None] - c_est[None], axis=-1)
+    return float(resid), float(np.abs(d_gt / d_gt.max() - d_est / max(d_est.max(), 1e-9)).max())
+
+
+def run_cloud_opt(device, slam) -> dict:
+    """Phase 3 (c): MASt3R cloud optimisation on the prior run's keyframes
+    (cloud_opt_problem): sparse_global_alignment at SparseGAConfig()'s 500 +
+    500 Adam steps on the card, its camera centres held to
+    tests/test_cloud_opt.py's bars against the ground truth; a run of
+    GA_STEPS phase-1 steps on the card and on the CPU held to each other within
+    GA_TOL of the scene's scale; tsdf_refine_depths (one pass of 128
+    samples a pixel) on the card over the same views; ms per Adam step and
+    per TSDF pass, both phases' losses."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lvdgs_torch.models.mast3r import cloud_opt as co
+
+    kfs, kw, depths, centres, sub = cloud_opt_problem(slam)
+    cfg = co.SparseGAConfig()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = co.sparse_global_alignment(**kw, cfg=cfg, device=device)
+    _sync(device)
+    ga_s = time.perf_counter() - t0
+    c_est = res.cam2w[:, :3, 3].double().cpu().numpy()
+    resid, dist = _centre_errors(centres, c_est)
+    losses = (float(res.loss1), float(res.loss2))
+    ok = resid < GA_CENTRE_BAR and dist < GA_DIST_BAR and all(np.isfinite(losses))
+
+    anchor_xy, core0, corres, scores = co.build_correspondences(kw["canonical_depths"], kw["pair_matches"],
+                                                                kw["subsample"])
+    root, edges = co.compute_min_spanning_tree(scores)
+    short = {}
+    for dev in (device, "cpu"):
+        f32 = dict(dtype=torch.float32, device=dev)
+        short[str(dev)] = co.sparse_scene_optimizer(
+            torch.as_tensor(kw["imsizes"], **f32), torch.as_tensor(kw["pps"], **f32),
+            torch.as_tensor(kw["base_focals"], **f32), torch.as_tensor(core0, device=dev),
+            torch.as_tensor(anchor_xy, device=dev), co.correspondences_to_device(corres, dev),
+            mst_root=root, mst_edges=edges, cfg=dataclasses.replace(cfg, niter1=GA_STEPS, niter2=0))
+    card, cpu = short[str(device)], short["cpu"]
+    scale = float(cpu.pts3d.abs().max())
+    step_err = max(float((getattr(card, n).cpu() - getattr(cpu, n)).abs().max()) for n in ("cam2w", "pts3d")) / scale
+    ok_steps = step_err <= GA_TOL
+
+    f32 = dict(dtype=torch.float32, device=device)
+    N = len(kfs)
+    c2w = torch.as_tensor(np.stack([np.linalg.inv(np.asarray(slam.dataset.poses[k], np.float64)) for k in kfs]), **f32)
+    args = (torch.as_tensor(depths, **f32), torch.zeros(depths.shape, **f32), c2w,
+            torch.full((N,), sub.fx, **f32), torch.as_tensor(np.tile([[sub.cx, sub.cy]], (N, 1)), **f32))
+    gen = torch.Generator(device=device).manual_seed(0)
+    refined = co.tsdf_refine_depths(*args, gen, thresh=0.1)  # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    refined = co.tsdf_refine_depths(*args, gen, thresh=0.1)
+    _sync(device)
+    tsdf_ms = 1e3 * (time.perf_counter() - t0)
+    moved = float((refined - args[0]).abs().max())
+    finite = bool(torch.isfinite(refined).all())
+    n_matches = [len(p[2]) for p in kw["pair_matches"]]
+    print(f"cloud opt [prior run's keyframes {kfs} at {kw['imsizes'][0][0]}x{kw['imsizes'][0][1]}, oracle depths and "
+          f"matches, {len(n_matches)} pairs of {min(n_matches)}-{max(n_matches)} matches, root {root}]: "
+          f"sparse GA {cfg.niter1} + {cfg.niter2} steps in {ga_s:.3f} s, "
+          f"{1e3 * ga_s / (cfg.niter1 + cfg.niter2):.3f} ms per Adam step; losses {losses[0]:.6f} (3D) and "
+          f"{losses[1]:.6f} (2D); camera centres against the truth: Umeyama residual {resid:.4f} of the scene "
+          f"(bar {GA_CENTRE_BAR}), pairwise distances {dist:.4f} (bar {GA_DIST_BAR}) {'ok' if ok else 'MISSES'}",
+          flush=True)
+    print(f"cloud opt: {GA_STEPS} phase-1 Adam steps on the card against the CPU: {step_err:.3e} of the scene's "
+          f"scale (tolerance {GA_TOL:.0e}), loss1 {float(card.loss1):.7f} and {float(cpu.loss1):.7f} "
+          f"{'ok' if ok_steps else 'DISAGREES'}; TSDF refinement, one pass of 128 samples a pixel over {N} "
+          f"views: {tsdf_ms:.3f} ms, depths moved up to {moved:.4f}, finite {finite}", flush=True)
+    if not ok:
+        fail("sparse global alignment does not recover the prior run's cameras")
+    if not ok_steps:
+        fail("sparse global alignment's short run on the card differs from the CPU's")
+    if not finite:
+        fail("the TSDF refinement gave non-finite depths")
+    return {"ga_ms_per_step": 1e3 * ga_s / (cfg.niter1 + cfg.niter2), "tsdf_ms": tsdf_ms}
+
+
+def run_coarse_to_fine(net, ds) -> None:
+    """Phase 3 (d): refine_matches on street frames 0 and 5 at full
+    resolution (1226x370) with the network phase's full-width random-weight
+    MASt3R: integer matches inside both frames; the crop pairs it ran, the
+    matches and the seconds."""
+    import numpy as np
+
+    from lvdgs_torch.models.mast3r.coarse_to_fine import refine_matches
+
+    img1, img2 = ds[0][0], ds[5][0]
+    calls = []
+    infer = net.infer_pair
+
+    def counted(a, b):
+        calls.append((tuple(a.shape[1:]), tuple(b.shape[1:])))
+        return infer(a, b)
+    net.infer_pair = counted
+    _sync(img1.device)
+    t0 = time.perf_counter()
+    try:
+        m1, m2 = refine_matches(net, img1, img2)
+    finally:
+        del net.infer_pair
+    _sync(img1.device)
+    seconds = time.perf_counter() - t0
+    (H1, W1), (H2, W2) = img1.shape[1:], img2.shape[1:]
+    inside = all(m.dtype == np.int64 and (m >= 0).all() and (m[:, 0] < w).all() and (m[:, 1] < h).all()
+                 for m, h, w in ((m1, H1, W1), (m2, H2, W2)))
+    ok = inside and len(m1) == len(m2) > 0
+    print(f"coarse to fine [street frames 0 and 5 at {W1}x{H1}, MASt3RConfig() random weights]: {len(calls) - 1} "
+          f"crop pairs (crop shapes {calls[1:]}), {len(m1)} matches, {seconds:.3f} s, integer and inside both "
+          f"frames: {inside} {'ok' if ok else 'WRONG'}", flush=True)
+    if not ok:
+        fail("coarse-to-fine matching gave no matches, or matches outside the frames")
+
+
+def run_dinov2(device, ds) -> dict:
+    """Phase 3 (e): DINOv2Config() (ViT-B/14) with seeded random weights,
+    saved in the torch.hub layout (with its mask_token) and loaded strictly
+    onto the card and onto the CPU; one forward on street frame 0 resized
+    to 1218x364 (87x26 patches, so the 37x37 position embedding resizes
+    down one axis and up the other), the final tokens and the last block's
+    attention held card against CPU (DINO_TOL, DINO_ATTN_TOL), and each
+    block's tokens and attention too; the parameter count and the forward's
+    ms. The LayerScale gammas are drawn in [0.5, 1.5): init_params's 1e-5
+    would leave each block's update at about 1e-5 of the stream, where a
+    wrong block would not show in the tokens."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from lvdgs_torch.models.dinov2 import DINOv2Config, dinov2_forward, init_params, load_hub
+    from lvdgs_torch.tools.timing import time_ms
+
+    cfg = DINOv2Config()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_params(cfg, gen, device)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for ls in (blk.ls1, blk.ls2):
+                ls.gamma.copy_(torch.rand(cfg.dim, generator=gen, device=device) + 0.5)
+    n_params = sum(p.numel() for p in model.parameters())
+    hub = dict(model.state_dict())
+    hub["mask_token"] = torch.zeros(1, cfg.dim, device=device)
+    tmp = tempfile.mkdtemp(prefix="lvdgs_dinov2_")
+    try:
+        path = os.path.join(tmp, "dinov2_vitb14.pth")
+        torch.save(hub, path)
+        card, host = load_hub(path, cfg, device=device), load_hub(path, cfg, device="cpu")
+    finally:
+        shutil.rmtree(tmp)
+    same = all(torch.equal(v, model.state_dict()[k]) for k, v in card.state_dict().items())
+    del model, hub
+    hw = (364, 1218)
+    mean = torch.tensor([0.485, 0.456, 0.406], device=device)[:, None, None]
+    std = torch.tensor([0.229, 0.224, 0.225], device=device)[:, None, None]
+    x = ((F.interpolate(ds[0][0][None], size=hw, mode="bilinear", align_corners=False) - mean) / std).float()
+    out = dinov2_forward(card, x)
+    t0 = time.perf_counter()
+    ref = dinov2_forward(host, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = float((out["final"].cpu() - ref["final"]).abs().max()) / float(ref["final"].abs().max())
+    att = float((out["attn"][-1].cpu() - ref["attn"][-1]).abs().max())
+    blk_err, blk_att, prev = [], [], None
+    for t_card, t_cpu, a_card, a_cpu in zip(out["tokens"], ref["tokens"], out["attn"], ref["attn"]):
+        upd = t_cpu if prev is None else t_cpu - prev
+        blk_err.append(float((t_card.cpu() - t_cpu).abs().max()) / float(upd.abs().max()))
+        blk_att.append(float((a_card.cpu() - a_cpu).abs().max()))
+        prev = t_cpu
+    ms = time_ms(lambda: dinov2_forward(card, x), reps=5, warmup=1)
+    ok = (same and out["grid"] == (26, 87) and err <= DINO_TOL and att <= DINO_ATTN_TOL
+          and len(out["tokens"]) == len(out["attn"]) == cfg.depth
+          and max(blk_err) <= DINO_TOL and max(blk_att) <= DINO_ATTN_TOL)
+    print(f"dinov2 [DINOv2Config(), {n_params} parameters, hub layout loaded strictly, weights equal {same}; street "
+          f"frame 0 at {hw[1]}x{hw[0]}, grid {out['grid']}]: final tokens against the CPU {err:.3e} of their largest "
+          f"magnitude (tolerance {DINO_TOL:.0e}), last block's attention {att:.3e} (tolerance {DINO_ATTN_TOL:.0e}); "
+          f"blocks' tokens {min(blk_err):.3e}-{max(blk_err):.3e} of their updates, attention up to "
+          f"{max(blk_att):.3e} (LayerScale drawn in [0.5, 1.5)); "
+          f"forward {ms:.3f} ms on the card (the CPU's {cpu_s:.1f} s) {'ok' if ok else 'DISAGREES'}", flush=True)
+    if not ok:
+        fail("DINOv2 on the card disagrees with its CPU self, or did not load as saved")
+    del card, host, out, ref
+    torch.cuda.empty_cache()
+    return {"forward_ms": ms}
 
 
 def deterministic_street(device, frames: int, out: str, against: str | None, packed: bool) -> None:
@@ -1841,11 +2269,22 @@ def main() -> None:
     # phase 3
     check_default_budgets(device)
     launches = {}
+    import shutil
+    import tempfile
+
+    feed_dir = tempfile.mkdtemp(prefix="lvdgs_feed_")
     for packed, bf16, pyramid, frames in ((True, False, False, args.frames),
                                           (True, True, False, args.bf16_frames),
                                           (False, False, False, args.dense_frames),
                                           (True, False, True, args.frames)):
-        run_launches, slam = run_slam(device, frames, packed, bf16, pyramid=pyramid)
+        # the first float32 run writes the feed and the panels (a), and its
+        # state goes through the COLMAP export (b)
+        first = packed and not bf16 and not pyramid
+        run_launches, slam = run_slam(device, frames, packed, bf16, pyramid=pyramid,
+                                      feed=feed_dir if first else None)
+        if first:
+            run_colmap_export(slam)
+            shutil.rmtree(feed_dir)
         stages = run_launches.pop("stages", None)
         for name, n in run_launches.items():
             launches[name] = launches.get(name, 0) + n
@@ -1879,7 +2318,14 @@ def main() -> None:
     for name, n in prior_launches.items():
         launches[name] = launches.get(name, 0) + n
     check_median_subres(prior_slam)
-    run_network(device, prior_slam)
+    # MASt3R's cloud optimisation on the prior run's keyframes (c)
+    run_cloud_opt(device, prior_slam)
+    net = run_network(device, prior_slam)
+    # coarse-to-fine matching with the network (d), then DINOv2 (e)
+    run_coarse_to_fine(net, prior_slam.dataset)
+    del net
+    torch.cuda.empty_cache()
+    run_dinov2(device, prior_slam.dataset)
     del prior_slam
     torch.cuda.empty_cache()
     # one binning call of the packed run's final map, bucketed and not

@@ -4,7 +4,7 @@ Takes the reference package's state as NumPy arrays (``np.asarray`` of each
 JAX leaf) and builds this package's dataclasses on a device, and goes back
 to NumPy for slot-by-slot comparison. Covers the Gaussian map with its
 active mask, the Adam moments and step, the keyframe buffer and cameras,
-and the MASt3R, GroundingDINO and SAM networks' parameters.
+and the MASt3R, GroundingDINO, SAM and DINOv2 networks' parameters.
 """
 from __future__ import annotations
 
@@ -328,4 +328,29 @@ def sam_state_dict_from_numpy(params: dict, cfg) -> Dict[str, torch.Tensor]:
             lin(f"{pre}.output_hypernetworks_mlps.{i}.layers.{j}", p)
     for j, p in enumerate(md["iou_mlp"]):
         lin(f"{pre}.iou_prediction_head.layers.{j}", p)
+    return sd
+
+
+def dinov2_state_dict_from_numpy(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """The reference's DINOv2 parameters (its init_params or
+    convert_state_dict output, as NumPy) as the state_dict of
+    lvdgs_torch.models.dinov2.DINOv2 under the torch.hub names; linear
+    weights go back from (in, out) to (out, in)."""
+    def arr(x, transpose=False):
+        x = np.array(x, np.float32)
+        return torch.from_numpy(np.ascontiguousarray(x.T if transpose else x))
+
+    sd = {"cls_token": arr(params["cls_token"]), "pos_embed": arr(params["pos_embed"]),
+          "patch_embed.proj.weight": arr(params["patch_embed"]["weight"]),
+          "patch_embed.proj.bias": arr(params["patch_embed"]["bias"]),
+          "norm.weight": arr(params["norm"]["weight"]), "norm.bias": arr(params["norm"]["bias"])}
+    names = {"norm1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "norm2": "norm2", "fc1": "mlp.fc1",
+             "fc2": "mlp.fc2"}
+    for i, blk in enumerate(params["blocks"][:cfg.depth]):
+        for key, name in names.items():
+            linear = not key.startswith("norm")
+            sd[f"blocks.{i}.{name}.weight"] = arr(blk[key]["weight"], transpose=linear)
+            sd[f"blocks.{i}.{name}.bias"] = arr(blk[key]["bias"])
+        sd[f"blocks.{i}.ls1.gamma"] = arr(blk["ls1"])
+        sd[f"blocks.{i}.ls2.gamma"] = arr(blk["ls2"])
     return sd

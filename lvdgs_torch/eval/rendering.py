@@ -4,7 +4,10 @@ frame has a static mask (PyTorch port of ``lvdgs_tpu/eval/rendering.py``).
 
 LPIPS follows the reference's `_lpips`: without AlexNet weights the metric
 is unavailable and its key is left out; none are in the repo, so the port
-reports none. The per-frame panels wait for ROADMAP A14."""
+reports none. With a `save_dir`, each `viz_every`-th frame also writes the
+reference's per-frame files: its render (PNG) and depth (.npy) under
+`renders_{iteration}/` and the six-panel figure under
+`panels_{iteration}/`, both best-effort (a failure is logged)."""
 from __future__ import annotations
 
 import json
@@ -32,6 +35,7 @@ def eval_rendering(
     kf_indices: Optional[List[int]] = None,
     iteration: str = "final",
     max_frames: Optional[int] = None,
+    viz_every: int = 1,
 ) -> Dict[str, float]:
     """Mean PSNR (over valid-RGB pixels) and SSIM of every non-keyframe
     frame rendered from its estimated pose; frames with a non-finite pose
@@ -39,7 +43,9 @@ def eval_rendering(
     mean_psnr_static and mean_ssim_static score the render and the GT with
     the dynamic pixels set to the background colour: the dataset's GT
     static mask where it has one (so masked and unmasked runs are scored on
-    the same pixels), else the frame record's own mask."""
+    the same pixels), else the frame record's own mask. With `save_dir`,
+    frames whose index is a multiple of `viz_every` (0: none) write their
+    render, depth and six-panel figure, as the reference does."""
     kf_set = set(kf_indices or [])
     psnrs, ssims = [], []
     psnrs_s, ssims_s = [], []
@@ -56,7 +62,7 @@ def eval_rendering(
             nonfinite_frames.append(idx)
             Log(f"eval frame {idx}: non-finite pose, skipped", tag="Eval")
             continue
-        image = dataset[idx][0]
+        image, _, _, mono_depth = dataset[idx]
         gt = torch.as_tensor(image, dtype=torch.float32, device=dev)
         out = rasterize(
             params, gmap.active,
@@ -91,6 +97,17 @@ def eval_rendering(
                 psnrs_s.append(ps)
                 ssims_s.append(ss)
 
+        if save_dir is not None and viz_every and idx % viz_every == 0:
+            depth = out.depth[0].cpu().numpy()
+            _dump_frame(save_dir, iteration, idx, render.cpu().numpy(), depth)
+            try:
+                from .viz import six_panel
+
+                six_panel(gt, render, depth, mono_depth if mono_depth is not None else depth, static, idx,
+                          os.path.join(save_dir, f"panels_{iteration}"))
+            except Exception as e:  # the panels are best-effort
+                Log(f"six_panel viz failed for frame {idx}: {e}", tag="Eval")
+
     result = {
         "mean_psnr": float(np.mean(psnrs)) if psnrs else 0.0,
         "mean_ssim": float(np.mean(ssims)) if ssims else 0.0,
@@ -112,3 +129,17 @@ def eval_rendering(
         with open(os.path.join(save_dir, f"metrics_{iteration}.json"), "w") as fh:
             json.dump(result, fh, indent=2)
     return result
+
+
+def _dump_frame(save_dir, iteration, idx, render, depth):
+    """The reference's render PNG and depth .npy of one frame (best-effort)."""
+    try:
+        from PIL import Image
+
+        d = os.path.join(save_dir, f"renders_{iteration}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray((np.clip(render, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)).save(
+            os.path.join(d, f"{idx:05d}.png"))
+        np.save(os.path.join(d, f"depth_{idx:05d}.npy"), depth)
+    except Exception as e:
+        Log(f"render dump failed for frame {idx}: {e}", tag="Eval")

@@ -41,22 +41,37 @@ class Conv2dSame(nn.Conv2d):
         return F.conv2d(F.pad(x, pads), self.weight, self.bias, self.stride)
 
 
+def _triangle(x):
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel at a = -0.5, jax.image's "bicubic"."""
+    f = np.float32
+    out = ((f(1.5) * x - f(2.5)) * x) * x + f(1.0)
+    out = np.where(x >= 1.0, ((f(-0.5) * x + f(2.5)) * x - f(4.0)) * x + f(2.0), out)
+    return np.where(x >= 2.0, f(0.0), out)
+
+
+KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
 @functools.lru_cache(maxsize=64)
-def _axis_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_in, n_out) triangle-kernel weights of jax.image.resize
-    (antialiased, translation 0) along one axis; built once per shape and
-    device."""
-    scale = n_out / n_in
-    inv = 1.0 / scale
-    kscale = max(inv, 1.0)
-    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) / kscale
-    w = np.maximum(0.0, 1.0 - np.abs(x))
-    total = w.sum(axis=0, keepdims=True)
+def _axis_weights(n_in: int, n_out: int, device, method: str = "bilinear") -> torch.Tensor:
+    """(n_in, n_out) weights of jax.image.resize (antialiased, translation
+    0) with `method`'s kernel along one axis, computed in float32 as there;
+    built once per shape and device."""
+    f = np.float32
+    inv = f(1.0) / (f(n_out) / f(n_in))
+    kscale = max(inv, f(1.0))
+    sample = (np.arange(n_out, dtype=f) + f(0.5)) * inv - f(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f)[:, None]) / kscale
+    w = KERNELS[method](x)
+    total = w.sum(axis=0, keepdims=True, dtype=f)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    w = np.where(inside[None, :], w, 0.0)
+                 w / np.where(total != 0, total, f(1.0)), f(0.0))
+    inside = (sample >= -0.5) & (sample <= f(n_in) - f(0.5))
+    w = np.where(inside[None, :], w, f(0.0))
     return torch.as_tensor(w, dtype=torch.float32, device=device)
 
 

@@ -60,6 +60,13 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def preprocessed_shape(H: int, W: int, size: int = 512) -> Tuple[int, int]:
+    """(H', W') that preprocess_image gives an H x W image."""
+    scale = size / max(H, W)
+    newW, newH = int(round(W * scale)), int(round(H * scale))
+    return (2 * (newH // 2)) // 16 * 16, (2 * (newW // 2)) // 16 * 16
+
+
 def preprocess_image(img, size: int = 512) -> Tuple[np.ndarray, Tuple[int, int]]:
     """(3, H, W) float in [0, 1] -> (3, H', W') in [-1, 1] with the long
     edge `size` and both sides cropped to multiples of 16, and (H', W')."""
@@ -112,6 +119,11 @@ class MASt3RInference:
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[MASt3RConfig] = None, device=None):
         return cls(load_checkpoint(path, cfg, device))
+
+    def fits(self, img) -> bool:
+        """Whether `img` (3, H, W) keeps at least one patch each way once
+        preprocessed (at size 512, a crop of 32:1 or thinner does not)."""
+        return min(preprocessed_shape(img.shape[-2], img.shape[-1], self.size)) >= self.cfg.patch_size
 
     def _batch(self, img):
         p, shape = preprocess_image(img, self.size)

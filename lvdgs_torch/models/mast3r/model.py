@@ -132,10 +132,13 @@ class MASt3R(nn.Module):
         outs2[-1] = self.dec_norm(outs2[-1])
         return outs1, outs2
 
-    def heads(self, outs1, outs2, grid_hw, raw: bool = False):
+    def heads(self, outs1, outs2, grid_hw, raw: bool = False, grid_hw2=None):
+        """Both views' predictions; view 2 at `grid_hw2` where its patch grid
+        differs from view 1's."""
         preds = []
-        for outs, head in ((outs1, self.downstream_head1), (outs2, self.downstream_head2)):
-            fmap = head(outs, grid_hw)
+        for outs, head, grid in ((outs1, self.downstream_head1, grid_hw),
+                                 (outs2, self.downstream_head2, grid_hw2 or grid_hw)):
+            fmap = head(outs, grid)
             pred = postprocess(fmap, self.cfg)
             if raw:
                 pred["raw"] = fmap
@@ -166,11 +169,25 @@ def _split(preds, n: int):
     return [{k: v[:n] for k, v in p.items()} for p in preds], [{k: v[n:] for k, v in p.items()} for p in preds]
 
 
+def _forward_apart(model: MASt3R, img1, img2, raw: bool = False):
+    """mast3r_forward for two views of two shapes (a coarse-to-fine crop
+    pair): each view encoded alone, as the official model does, and headed
+    at its own patch grid; the reference needs equal shapes."""
+    ps = model.cfg.patch_size
+    f1, pos1 = model.encode(img1)
+    f2, pos2 = model.encode(img2)
+    outs1, outs2 = model.decode(f1, pos1, f2, pos2)
+    return model.heads(outs1, outs2, (img1.shape[-2] // ps, img1.shape[-1] // ps), raw,
+                       (img2.shape[-2] // ps, img2.shape[-1] // ps))
+
+
 @torch.no_grad()
 def mast3r_forward(model: MASt3R, img1, img2, raw: bool = False):
     """img1, img2: (B, 3, H, W) normalised to [-1, 1]. Returns (pred1,
     pred2), view 2's pts3d in view 1's frame; with `raw`, each also holds
     the head's feature map under "raw"."""
+    if img1.shape[-2:] != img2.shape[-2:]:
+        return _forward_apart(model, img1, img2, raw)
     ps = model.cfg.patch_size
     grid_hw = (img1.shape[-2] // ps, img1.shape[-1] // ps)
     tokens, pos = model.encode(torch.cat([img1, img2], dim=0))

@@ -34,10 +34,16 @@ sort (`_update_bin_bucket`, on by default off the CPU), and
 `Results.global_BA` runs a photometric global bundle adjustment before
 colour refinement.
 
-Configuration keys and defaults are those of the reference package. Paths
-that this package does not carry yet raise NotImplementedError naming the
-ROADMAP item: the GUI and the visualisation panels (A14) and data-parallel
-mapping (A15).
+Outputs that only read the state, as in the reference: `Results.use_gui`
+feeds a `HeadlessViewer` (``lvdgs_torch.gui``) a packet after each tracked
+frame (every `gui_every`-th is written), `Results.save_depth_comparison`
+draws each fused keyframe's rendered against mono depth, and the final
+eval writes each `viz_every`-th frame's render, depth and six-panel figure.
+
+Configuration keys and defaults are those of the reference package.
+`Performance.data_parallel` runs single-device where one device of the
+SLAM's kind is visible, as the reference does; where more are, it raises
+NotImplementedError naming ROADMAP A15 (data-parallel mapping).
 """
 from __future__ import annotations
 
@@ -90,21 +96,22 @@ def _dilate_mask(mask: torch.Tensor, kernel: int) -> torch.Tensor:
     return F.max_pool2d(mask.to(torch.float32)[None, None], kernel, stride=1, padding=pad)[0, 0] > 0.5
 
 
-def _refuse_unported(config: dict) -> None:
-    perf = config.get("Performance", {}) or {}
-    res = config.get("Results", {}) or {}
-    checks = [
-        (perf.get("data_parallel", False), "data-parallel mapping (ROADMAP A15)"),
-        (res.get("use_gui", False), "the GUI feed (ROADMAP A14)"),
-        (res.get("save_depth_comparison", False),
-         "the depth-comparison panels, Results.save_depth_comparison (ROADMAP A14)"),
-        # only an explicit non-zero value: the reference's default of 1
-        # writes best-effort panels that the port does not write yet
-        (res.get("viz_every", 0), "the eval visualisation panels, Results.viz_every (ROADMAP A14)"),
-    ]
-    for asked, what in checks:
-        if asked:
-            raise NotImplementedError(f"lvdgs_torch does not carry {what} yet")
+def _device_count(dev: torch.device) -> int:
+    """Devices of `dev`'s kind that a data-parallel run would span."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _refuse_unported(config: dict, dev: torch.device) -> None:
+    """Performance.data_parallel: the reference builds a device mesh only
+    where more than one device is visible and runs single-device
+    otherwise; the port does the latter and refuses the former."""
+    if not (config.get("Performance", {}) or {}).get("data_parallel", False):
+        return
+    n = _device_count(dev)
+    if n > 1:
+        raise NotImplementedError(
+            f"lvdgs_torch does not carry data-parallel mapping over {n} devices yet (ROADMAP A15)")
+    Log(f"Performance.data_parallel with one {dev.type} device: running single-device")
 
 
 class SLAM:
@@ -112,8 +119,8 @@ class SLAM:
 
     def __init__(self, config: dict, save_dir: Optional[str] = None, device=None, masker=None,
                  pose_prior=None, depth_prior=None, scale_remedy=None):
-        _refuse_unported(config)
         self.device = resolve_device(device)
+        _refuse_unported(config, self.device)
         self.config = config
         self.save_dir = save_dir or config.get("Results", {}).get("save_dir", "results")
         tr = config["Training"]
@@ -306,8 +313,19 @@ class SLAM:
         self.do_color_refinement = res.get("color_refinement", True)
         self.color_refinement_iters = res.get("color_refinement_iters", 26000)
         self.do_eval_rendering = res.get("eval_rendering", True)
+        # the eval's per-frame dumps and six-panel figures, every viz_every-th
+        # frame (1 as in the reference; 0 writes none)
+        self.eval_viz_every = res.get("viz_every", 1)
         self.do_global_ba = res.get("global_BA", False)
         self.global_ba_iters = tr.get("global_BA_itr_num", 500)
+        # each fused keyframe's rendered against mono depth, drawn
+        self.save_depth_comparison = res.get("save_depth_comparison", False)
+        # the headless GUI feed, every gui_every-th tracked frame written
+        self.viewer = None
+        if res.get("use_gui", False):
+            from ..gui.gui_utils import HeadlessViewer
+
+            self.viewer = HeadlessViewer(os.path.join(self.save_dir or ".", "gui"), every=res.get("gui_every", 5))
         # dynamic-object masker: get_static_mask(image (3, H, W) host array,
         # frame_idx) -> (H, W) bool host array, True = static
         self.masker = masker
@@ -568,6 +586,15 @@ class SLAM:
             last_cam = self._cams.get(self.current_window[0])
             if last_cam is not None:
                 remedy_fn = lambda: self.scale_remedy(cam, last_cam)  # noqa: E731
+
+        if self.save_depth_comparison and self.save_dir:
+            try:
+                from ..eval.viz import save_depth_comparison
+
+                save_depth_comparison(render_depth, cam.mono_depth, cam.image, idx,
+                                      os.path.join(self.save_dir, "depth_comparison"))
+            except Exception as e:  # the figure is best-effort
+                Log(f"depth-comparison viz failed for frame {idx}: {e}")
 
         dc = self.depth_cfg
         thr = dc.get("final_error_threshold", 0.15)
@@ -974,9 +1001,26 @@ class SLAM:
             self.timer.toc("idle_mapping")
         self.frames_processed += 1
 
+        if self.viewer is not None:
+            self._feed_viewer(idx, res, create_kf)
+
         if self.save_results and self.save_trj and create_kf and \
                 len(self.kf_indices) % self.save_trj_kf_intv == 0:
             eval_ate(self.frames, self.kf_indices, self.save_dir, idx, monocular=self.monocular)
+
+    def _feed_viewer(self, idx: int, res, create_kf: bool) -> None:
+        """The GUI packet of a tracked frame: its pose and render, the
+        window's keyframes and, on a keyframe, the map's snapshot."""
+        from ..gui.gui_utils import GaussianPacket, snapshot_gaussians
+
+        pose = lambda k: {"R": self.frames[k]["R"], "T": self.frames[k]["T"], "uid": k}  # noqa: E731
+        self.viewer.put(GaussianPacket(
+            gaussians=snapshot_gaussians(self.gmap) if create_kf else None,
+            current_frame=pose(idx),
+            render=res.image.detach().cpu().numpy(),
+            keyframes=[pose(k) for k in self.current_window],
+            kf_window={self.current_window[0]: self.current_window[1:]} if self.current_window else None,
+        ))
 
     # ------------------------------------------------------------- checkpoint
 
@@ -1167,7 +1211,10 @@ class SLAM:
             results.update(eval_rendering(
                 self.gmap, self.frames, self.dataset, self.intr, self.rcfg,
                 save_dir=self.save_dir if self.save_results else None, kf_indices=self.kf_indices,
+                viz_every=self.eval_viz_every,
             ))
         results["timers"] = self.timer.summary()
+        if self.viewer is not None:
+            self.viewer.close()
         Log(f"SLAM done: {fps:.2f} fps, {len(self.kf_indices)} keyframes", tag="Eval")
         return results

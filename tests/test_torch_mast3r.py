@@ -120,6 +120,32 @@ def test_forward_matches_reference(tiny, hw):
     _assert_preds_close((t1, t2), (j1, j2))
 
 
+@pytest.mark.parametrize("hw2", [(64, 96), (144, 176)], ids=["equal-shape", "two-shape"])
+def test_separate_encoding_matches_reference(tiny, hw2):
+    """The forward that encodes each view alone (coarse-to-fine crop pairs
+    of two shapes) against the reference's own encoder, decoder and heads
+    composed the same way at each view's grid; at equal shapes also against
+    the batched forward, the port's and the reference's."""
+    params, model = tiny
+    a, _ = _imgs(3, (1, 3, 64, 96))
+    _, b = _imgs(4, (1, 3) + hw2)
+    with torch.no_grad():
+        apart = tm._forward_apart(model, torch.tensor(a), torch.tensor(b))
+    ps = jm.TINY.patch_size
+    f1, pos1 = jm._encode(jnp.asarray(a), params, jm.TINY)
+    f2, pos2 = jm._encode(jnp.asarray(b), params, jm.TINY)
+    o1, o2 = jm._decode(f1, pos1, f2, pos2, params, jm.TINY)
+    composed = (jm._head(o1, (64 // ps, 96 // ps), params["head1"], jm.TINY),
+                jm._head(o2, (hw2[0] // ps, hw2[1] // ps), params["head2"], jm.TINY))
+    _assert_preds_close(apart, composed)
+    assert apart[1]["desc"].shape[1:3] == hw2
+    if hw2 == (64, 96):
+        _assert_preds_close(apart, tm.mast3r_forward(model, torch.tensor(a), torch.tensor(b)))
+        _assert_preds_close(apart, jm.mast3r_forward(params, jnp.asarray(a), jnp.asarray(b), jm.TINY))
+    else:
+        _assert_preds_close(apart, tm.mast3r_forward(model, torch.tensor(a), torch.tensor(b)), 0.0)
+
+
 def test_fused_forward_matches_reference_and_two_calls(tiny):
     """Port copy of tests/test_mast3r.py::test_fused_forward_matches_two_calls,
     and the fused forward against the reference's."""

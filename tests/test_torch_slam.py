@@ -456,18 +456,27 @@ def test_slam_loop_runs_on_cpu():
     assert slam.gmap.num_active > 0
 
 
-def test_slam_defaults_to_cuda_and_refuses_unported_paths():
+def test_slam_defaults_to_cuda_and_refuses_unported_paths(monkeypatch):
     cfg = _small_slam_config(3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
-    asks = [("Results", "save_depth_comparison", True, "A14"),
-            ("Results", "viz_every", 1, "A14")]
-    for section, key, value, item in asks:
-        c = copy.deepcopy(cfg)
-        c.setdefault(section, {})[key] = value
-        with pytest.raises(NotImplementedError, match=item):
-            SLAM(c, device="cpu")
+    # data-parallel mapping: single-device on one device, as the reference
+    # runs it without a mesh; refused (A15) where more devices are visible
+    c = copy.deepcopy(cfg)
+    c["Performance"]["data_parallel"] = True
+    SLAM(copy.deepcopy(c), device="cpu")
+    monkeypatch.setattr(tsys, "_device_count", lambda dev: 4)
+    with pytest.raises(NotImplementedError, match="A15"):
+        SLAM(c, device="cpu")
+    monkeypatch.undo()
+    # carried since A14: the GUI feed, the depth-comparison figures and the
+    # eval panels, at the reference's default viz_every of 1
+    c = copy.deepcopy(cfg)
+    c["Results"].update({"use_gui": True, "save_depth_comparison": True, "viz_every": 1})
+    slam = SLAM(c, save_dir=None, device="cpu")
+    assert slam.viewer is not None and slam.save_depth_comparison and slam.eval_viz_every == 1
+    slam.viewer.close()
     # carried since they were ported: the binning bucket (C4), global BA
     # (A7) and the MASt3R checkpoint, whose priors python -m lvdgs_torch
     # builds and hands to the constructor (A12)
@@ -481,7 +490,7 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths():
     # an explicit viz_every of 0 asks for no panels
     c = copy.deepcopy(cfg)
     c["Results"]["viz_every"] = 0
-    SLAM(c, device="cpu")
+    assert SLAM(c, device="cpu").eval_viz_every == 0
     # dynamic filtering is carried (A11), and so are the detector and
     # segmenter checkpoints (A13): one that does not load leaves its hook
     # empty, as the reference's ladder does
@@ -559,3 +568,48 @@ def test_pace_kf_hz_sleeps_after_keyframes(monkeypatch):
     slam.run(progress=False)
     assert len(sleeps) == len(slam.kf_indices) >= 1
     assert all(900.0 < s < 1000.0 for s in sleeps)
+
+
+def _saved_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_gui_feed_and_panels_change_no_bit_and_write_the_references_files(tmp_path):
+    """The small config with Results.use_gui (every frame), save_depth_comparison
+    and viz_every 1 and save_results ends bit for bit where the same run
+    without them ends (the feed and the figures only read the state), and
+    writes the set of files that the reference's run of that config writes:
+    the GUI feed, one depth comparison per fused keyframe, one render dump
+    and six-panel figure per evaluated frame, the trajectory plots, the map."""
+    from lvdgs_tpu.slam.system import SLAM as JSLAM
+
+    plain = _small_slam_config(5)
+    plain["Results"]["viz_every"] = 0
+    base = SLAM(copy.deepcopy(plain), save_dir=None, device="cpu")
+    base.run(progress=False)
+
+    cfg = _small_slam_config(5)
+    cfg["Results"].update({"save_results": True, "use_gui": True, "gui_every": 1, "save_depth_comparison": True,
+                           "viz_every": 1})
+    fed = SLAM(copy.deepcopy(cfg), save_dir=str(tmp_path / "ours"), device="cpu")
+    fed.run(progress=False)
+    assert fed.kf_indices == base.kf_indices
+    for k, v in base.gmap.params().items():
+        assert torch.equal(fed.gmap.params()[k], v), k
+    assert torch.equal(fed.gmap.active, base.gmap.active)
+    for i, f in base.frames.items():
+        assert np.array_equal(fed.frames[i]["R"], f["R"]) and np.array_equal(fed.frames[i]["T"], f["T"]), i
+
+    ours = _saved_files(tmp_path / "ours")
+    traj = (tmp_path / "ours" / "gui" / "trajectory.jsonl").read_text().strip().splitlines()
+    assert len(traj) == 4  # one record per tracked frame
+    n_fused = len(fed.kf_indices) - 1
+    assert sum(p.startswith("depth_comparison/") for p in ours) == n_fused >= 1
+    n_eval = 5 - len(fed.kf_indices)
+    assert sum(p.startswith("panels_final/") for p in ours) == n_eval >= 1
+    assert sum(p.startswith("renders_final/") for p in ours) == 2 * n_eval
+
+    ref = JSLAM(copy.deepcopy(cfg), save_dir=str(tmp_path / "ref"))
+    ref.run()
+    assert ref.kf_indices == fed.kf_indices
+    assert ours == _saved_files(tmp_path / "ref")
