@@ -20,6 +20,9 @@ the window cameras' bins come from prepare_bins_with_touched once per
 period, and the full-depth probe's visibility, carried through densify's
 clone/split/prune, is what the opacity reset and the result's visibility
 read: a budget-capped render reports contributors it dropped as untouched.
+
+With a mesh, `mapping_run` is camera-data-parallel over its "data" ranks
+(the reference's camera_grads_sharded): see its docstring.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from ..core.camera import Intrinsics
 from ..core.losses import isotropic_reg, l1_loss, loss_mapping_masked, ssim
 from ..gaussian import model as gm
 from ..ops.rasterizer import RenderConfig, prepare_bins, prepare_bins_with_touched, rasterize
+from ..parallel.collectives import all_gather_tiled, all_reduce_flat
+from ..parallel.mesh import dim_group, dim_rank, dim_size
 from .state import KeyframeBuffer, camera_from_slot
 
 
@@ -113,11 +118,24 @@ def mapping_run(
     rcfg: RenderConfig,
     opt: gm.MapOptimizer,
     mcfg: MappingConfig,
+    mesh=None,
 ) -> MappingResult:
     """Run `n_iters` mapping iterations. Updates `gmap`, `opt_state` and the
     window poses/exposures in `kfbuf` in place (the reference donated these
     buffers). `generator` (a CPU generator) draws the replay keyframes and
-    the split samples."""
+    the split samples.
+
+    With a `mesh` (lvdgs_torch.parallel.make_mesh), the rendered cameras
+    are split over its "data" ranks in contiguous blocks of
+    ceil(n / ranks); each rank renders its block and takes one backward.
+    One all-reduce sums the loss and the map gradients, the isotropic term
+    is added once after it, and one all-gather hands every rank each
+    camera's pose and exposure gradients, screen-space gradient norms,
+    visibility, radii and (where needed) touch counts, so every rank
+    applies the same updates: every rank calls it with the same state and
+    generator state and ends with the same state. A rank with fewer
+    cameras than the block sends zero rows, as the reference's weight-0
+    padding cameras contribute nothing."""
     dev = gmap.device
     Ws = len(window_slots)
     Nr = mcfg.n_random
@@ -174,6 +192,9 @@ def mapping_run(
                        for i, h in zip(valid_idx, has_static) if h}
     bg = torch.full((3,), 1.0 if rcfg.white_background else 0.0, dtype=torch.float32, device=dev)
     use_fb = rcfg.use_packed and rcfg.saturation_feedback
+    group, n_ranks, rank = None, 1, 0
+    if mesh is not None:
+        group, n_ranks, rank = dim_group(mesh, "data"), dim_size(mesh, "data"), dim_rank(mesh, "data")
 
     while local_it < local_end:
         # --- per-period work: replay draw and binning at current poses ---
@@ -190,13 +211,16 @@ def mapping_run(
         cams = [("w", i) for i in valid_idx] + [
             ("r", r) for r in range(len(replay_slots)) if replay_w[r] > 0
         ]
+        # this rank's cameras: all of them on one device, else its block
+        per = -(-len(cams) // n_ranks)
+        mine = cams[rank * per:(rank + 1) * per]
         with torch.no_grad():
             p0 = gmap.params()
             bins = {}
             if use_fb:
                 # this period's full-depth probe visibility of the window
                 occ_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
-            for kind, j in cams:
+            for kind, j in mine:
                 R, T = (Rw[j], Tw[j]) if kind == "w" else (kfbuf.R[replay_slots[j]], kfbuf.T[replay_slots[j]])
                 if use_fb and kind == "w":
                     bins[(kind, j)], occ_vis[j] = prepare_bins_with_touched(
@@ -204,6 +228,15 @@ def mapping_run(
                 else:
                     bins[(kind, j)] = prepare_bins(p0, gmap.active, R, T, intr, rcfg,
                                                    margin=mcfg.bin_margin)
+            if use_fb and group is not None:
+                rows = torch.zeros((per, C), dtype=torch.bool, device=dev)
+                for i, (kind, j) in enumerate(mine):
+                    if kind == "w":
+                        rows[i] = occ_vis[j]
+                rows = all_gather_tiled(rows, group)
+                for i, (kind, j) in enumerate(cams):
+                    if kind == "w":
+                        occ_vis[j] = rows[i]
         replay_targets = {j: targets(replay_slots[j]) for kind, j in cams if kind == "r"}
 
         stop_at = min(local_it + mcfg.rebin_every, local_end)
@@ -222,7 +255,7 @@ def mapping_run(
             active = gmap.active
             total = torch.zeros((), **f32)
             taus, abs_, vss, vis_l, radii_l, nt_l = {}, {}, {}, {}, {}, {}
-            for kind, j in cams:
+            for kind, j in mine:
                 vs = torch.zeros((C, 2), **f32, requires_grad=True)
                 if kind == "w":
                     tau = torch.zeros(6, **f32, requires_grad=True)
@@ -255,26 +288,39 @@ def mapping_run(
                 vis_l[(kind, j)] = out.visibility_filter
                 radii_l[(kind, j)] = out.radii
                 nt_l[(kind, j)] = out.n_touched
-            # isotropic regulariser
-            total = total + mcfg.isotropic_weight * isotropic_reg(torch.exp(params["log_scales"]), active)
+            # isotropic regulariser (on a mesh: once, after the reduction)
+            iso = mcfg.isotropic_weight * isotropic_reg(torch.exp(params["log_scales"]), active)
+            if group is None:
+                total = total + iso
             order = list(taus)
-            leaves = list(params.values()) + [vss[c] for c in cams] + [taus[j] for j in order] + [
+            leaves = list(params.values()) + [vss[c] for c in mine] + [taus[j] for j in order] + [
                 abs_[j] for j in order
             ]
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            # a rank without cameras has no graph: its gradients are zeros
+            grads = (torch.autograd.grad(total, leaves, allow_unused=True) if total.requires_grad
+                     else [None] * len(leaves))
             nP = len(params)
             g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
                         for k, g in zip(params, grads[:nP])}
-            g_vs = grads[nP:nP + len(cams)]
-            g_tau_l = grads[nP + len(cams):nP + len(cams) + len(order)]
-            g_ab_l = grads[nP + len(cams) + len(order):]
+            gvs_norm_of = {c: torch.linalg.norm(g, dim=-1) for c, g in zip(mine, grads[nP:nP + len(mine)])}
+            g_tau_of = dict(zip(order, grads[nP + len(mine):nP + len(mine) + len(order)]))
+            g_ab_of = dict(zip(order, grads[nP + len(mine) + len(order):]))
+            if group is not None:
+                with torch.no_grad():
+                    red = all_reduce_flat({"loss": total.detach().reshape(1), **g_params}, group)
+                    (g_iso,) = torch.autograd.grad(iso, params["log_scales"])
+                    total = red.pop("loss")[0] + iso.detach()
+                    g_params = {**red, "log_scales": red["log_scales"] + g_iso}
+                    g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l, nt_l = _share_cameras(
+                        mine, cams, per, C, group, need_nt, g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l,
+                        nt_l, dev)
 
             with torch.no_grad():
                 # densification stats over the rendered (valid) cameras
                 if cams:
                     vis_b = torch.stack([vis_l[c] for c in cams]) & active[None]
                     radii_all = torch.stack([radii_l[c] for c in cams])
-                    gvs_norm = torch.stack([torch.linalg.norm(g, dim=-1) for g in g_vs])
+                    gvs_norm = torch.stack([gvs_norm_of[c] for c in cams])
                     gmap.max_radii2d.copy_(torch.maximum(
                         gmap.max_radii2d,
                         torch.where(vis_b, radii_all, torch.zeros_like(radii_all)).max(dim=0).values,
@@ -322,12 +368,12 @@ def mapping_run(
                 # keyframe pose/exposure Adam (fresh state per run)
                 g_tau = torch.zeros((Ws, 6), **f32)
                 g_ab = torch.zeros((Ws, 2), **f32)
-                for j, gt_, ga in zip(order, g_tau_l, g_ab_l):
+                for j in g_tau_of:
                     # None: the loss does not reach it (no exposure at init)
-                    if gt_ is not None:
-                        g_tau[j] = gt_
-                    if ga is not None:
-                        g_ab[j] = ga
+                    if g_tau_of[j] is not None:
+                        g_tau[j] = g_tau_of[j]
+                    if g_ab_of[j] is not None:
+                        g_ab[j] = g_ab_of[j]
                 m_tau, v_tau, upd_tau = _adam(m_tau, v_tau, g_tau, local_it, lr_tau[None, :],
                                               mcfg.b1, mcfg.b2, mcfg.adam_eps)
                 tau_new = torch.where(pose_m, -upd_tau, torch.zeros_like(upd_tau))
@@ -347,6 +393,40 @@ def mapping_run(
             kfbuf.T[safe_slots[i]] = Tw[i]
             kfbuf.exposure_ab[safe_slots[i]] = abw[i]
     return MappingResult(occ_visibility=occ_vis, iteration_count=it_count, last_loss=loss_out)
+
+
+def _share_cameras(mine, cams, per: int, C: int, group, need_nt: bool, g_tau_of, g_ab_of, gvs_norm_of,
+                   vis_l, radii_l, nt_l, device):
+    """Camera-DP: every camera's results on every rank, by one all-gather of
+    one float32 row per camera (pose and exposure gradients, screen-space
+    gradient norm, visibility, radii and, with need_nt, touch counts); rank
+    r's block holds cams[r * per:(r + 1) * per], zero rows past the end.
+    Returns the dicts of the single-device path over all of `cams`."""
+    F = 8 + 3 * C + (C if need_nt else 0)
+    rows = torch.zeros((per, F), dtype=torch.float32, device=device)
+    for i, (kind, j) in enumerate(mine):
+        c = (kind, j)
+        if kind == "w":
+            if g_tau_of[j] is not None:
+                rows[i, 0:6] = g_tau_of[j]
+            if g_ab_of[j] is not None:
+                rows[i, 6:8] = g_ab_of[j]
+        rows[i, 8:8 + C] = gvs_norm_of[c]
+        rows[i, 8 + C:8 + 2 * C] = vis_l[c].to(torch.float32)
+        rows[i, 8 + 2 * C:8 + 3 * C] = radii_l[c]
+        if need_nt:
+            rows[i, 8 + 3 * C:] = nt_l[c].to(torch.float32)
+    rows = all_gather_tiled(rows, group)
+    g_tau, g_ab, gvs, vis, radii, nt = {}, {}, {}, {}, {}, {}
+    for i, (kind, j) in enumerate(cams):
+        c, r = (kind, j), rows[i]
+        if kind == "w":
+            g_tau[j], g_ab[j] = r[0:6], r[6:8]
+        gvs[c] = r[8:8 + C]
+        vis[c] = r[8 + C:8 + 2 * C] > 0.5
+        radii[c] = r[8 + 2 * C:8 + 3 * C]
+        nt[c] = (r[8 + 3 * C:] if need_nt else torch.zeros(C, device=r.device)).to(torch.int32)
+    return g_tau, g_ab, gvs, vis, radii, nt
 
 
 def color_refine_run(

@@ -41,9 +41,15 @@ draws each fused keyframe's rendered against mono depth, and the final
 eval writes each `viz_every`-th frame's render, depth and six-panel figure.
 
 Configuration keys and defaults are those of the reference package.
-`Performance.data_parallel` runs single-device where one device of the
-SLAM's kind is visible, as the reference does; where more are, it raises
-NotImplementedError naming ROADMAP A15 (data-parallel mapping).
+Multi-device (`Performance.data_parallel`): one process per rank, each
+building its SLAM with the same `mesh` (``lvdgs_torch.parallel``;
+``python -m lvdgs_torch`` launches one rank per visible GPU). Tracking then
+shards tile rows over the mesh's "data" ranks (track_camera_sharded) and
+windowed mapping its cameras (mapping_run(mesh=...)); every rank holds a
+replica of the map and takes the same host decisions, and rank 0 alone
+writes results, the feed and checkpoints. Without a mesh it runs
+single-device where one device of the SLAM's kind is visible, as the
+reference does, and raises ValueError where more are.
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ from ..eval.rendering import eval_rendering
 from ..gaussian import model as gm
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.ply import save_gaussians_ply
+from ..parallel.mesh import dim_size
 from ..ops.rasterizer import RenderConfig, rasterize_median_depth
 from . import state as slam_state
 from .depth_alignment import process_depth
@@ -76,7 +83,7 @@ from .mapping import (
     MappingConfig, color_refine_run, covisibility_prune, covisibility_prune_from_occ, global_ba_run,
     mapping_run,
 )
-from .tracking import TrackingConfig, track_camera, track_camera_pyramid
+from .tracking import TrackingConfig, track_camera, track_camera_pyramid, track_camera_sharded
 
 
 def resolve_device(device=None) -> torch.device:
@@ -101,26 +108,44 @@ def _device_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
-def _refuse_unported(config: dict, dev: torch.device) -> None:
-    """Performance.data_parallel: the reference builds a device mesh only
-    where more than one device is visible and runs single-device
-    otherwise; the port does the latter and refuses the former."""
-    if not (config.get("Performance", {}) or {}).get("data_parallel", False):
-        return
+def _data_parallel_mesh(config: dict, dev: torch.device, mesh):
+    """The mesh that tracking and mapping shard over, or None.
+
+    Performance.data_parallel with a mesh of more than one "data" rank
+    (every rank builds its SLAM with it): that mesh. Without a mesh, a
+    run that sees one device of its kind runs single-device, as the
+    reference does; one that sees more must be started one process per
+    device, and is refused here rather than run on one of them."""
+    dp = bool((config.get("Performance", {}) or {}).get("data_parallel", False))
+    if mesh is not None:
+        if not dp:
+            raise ValueError("a mesh is used only with Performance.data_parallel: set it, or pass no mesh")
+        n = dim_size(mesh, "data")
+        if n == 1:
+            return None
+        Log(f"Camera-DP mapping and tile-sharded tracking over {n} ranks")
+        return mesh
+    if not dp:
+        return None
     n = _device_count(dev)
     if n > 1:
-        raise NotImplementedError(
-            f"lvdgs_torch does not carry data-parallel mapping over {n} devices yet (ROADMAP A15)")
+        raise ValueError(
+            f"Performance.data_parallel with {n} {dev.type} devices visible runs one process per device: "
+            "start it with python -m lvdgs_torch (which launches the ranks), or build each rank's SLAM "
+            "with a mesh from lvdgs_torch.parallel (launch.spawn, make_mesh)")
     Log(f"Performance.data_parallel with one {dev.type} device: running single-device")
+    return None
 
 
 class SLAM:
     """End-to-end monocular Gaussian-splatting SLAM."""
 
     def __init__(self, config: dict, save_dir: Optional[str] = None, device=None, masker=None,
-                 pose_prior=None, depth_prior=None, scale_remedy=None):
+                 pose_prior=None, depth_prior=None, scale_remedy=None, mesh=None):
         self.device = resolve_device(device)
-        _refuse_unported(config, self.device)
+        self.mesh = _data_parallel_mesh(config, self.device, mesh)
+        # on a mesh, rank 0 alone writes results, the feed and checkpoints
+        self.is_writer = mesh is None or torch.distributed.get_rank() == 0
         self.config = config
         self.save_dir = save_dir or config.get("Results", {}).get("save_dir", "results")
         tr = config["Training"]
@@ -307,7 +332,7 @@ class SLAM:
         self.mono_depth_source = ds_cfg.get("mono_depth_source", "dataset")
 
         res = config.get("Results", {})
-        self.save_results = res.get("save_results", True)
+        self.save_results = res.get("save_results", True) and self.is_writer
         self.save_trj = res.get("save_trj", True)
         self.save_trj_kf_intv = res.get("save_trj_kf_intv", 10)
         self.do_color_refinement = res.get("color_refinement", True)
@@ -319,10 +344,10 @@ class SLAM:
         self.do_global_ba = res.get("global_BA", False)
         self.global_ba_iters = tr.get("global_BA_itr_num", 500)
         # each fused keyframe's rendered against mono depth, drawn
-        self.save_depth_comparison = res.get("save_depth_comparison", False)
+        self.save_depth_comparison = res.get("save_depth_comparison", False) and self.is_writer
         # the headless GUI feed, every gui_every-th tracked frame written
         self.viewer = None
-        if res.get("use_gui", False):
+        if res.get("use_gui", False) and self.is_writer:
             from ..gui.gui_utils import HeadlessViewer
 
             self.viewer = HeadlessViewer(os.path.join(self.save_dir or ".", "gui"), every=res.get("gui_every", 5))
@@ -383,6 +408,8 @@ class SLAM:
                 self.gmap, self.opt_state, self.kfbuf, window_slots, self.generator,
                 self.iteration_count, seg, local_it,
                 intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=mcfg,
+                # init mapping (one camera) runs on every rank alone
+                mesh=None if mcfg.initialization else self.mesh,
             )
             self.iteration_count = res.iteration_count
             local_it += seg
@@ -882,8 +909,14 @@ class SLAM:
 
     def _track(self, idx: int, cam: Camera):
         cam = self._pose_seed(idx, cam)
-        track = track_camera_pyramid if self.tcfg.pyramid else track_camera
-        res = track(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg_track, self.tcfg)
+        if self.mesh is not None:
+            # tile rows over the ranks, all-reduced pose gradients; ahead
+            # of the pyramid, as in the reference
+            res = track_camera_sharded(self.gmap.params(), self.gmap.active, cam, self.intr,
+                                       self.rcfg_track, self.tcfg, self.mesh)
+        else:
+            track = track_camera_pyramid if self.tcfg.pyramid else track_camera
+            res = track(self.gmap.params(), self.gmap.active, cam, self.intr, self.rcfg_track, self.tcfg)
         cam = cam.update_RT(res.R, res.T).replace(exposure_a=res.exposure_a, exposure_b=res.exposure_b)
         self._cams[idx] = cam
         last_kf = self.current_window[0] if self.current_window else None
@@ -921,7 +954,8 @@ class SLAM:
             self.occ_visibility.pop(removed, None)
 
         # keyframe mask overlay dump
-        if self.masker is not None and getattr(self.masker, "save_images", False) and cam.has_static_mask:
+        if (self.masker is not None and getattr(self.masker, "save_images", False) and cam.has_static_mask
+                and self.is_writer):
             self.masker.save_keyframe_overlay(cam.image, cam.static_mask, idx)
 
         self.timer.tic("kf_fusion")
@@ -1031,7 +1065,11 @@ class SLAM:
         counters and the scale observations), with this SLAM's generator
         state where the reference saves its JAX key. The keyframe buffer
         goes in as its filled rows; the rows past `count` hold the buffer's
-        initial values and are made anew on load."""
+        initial values and are made anew on load. On a mesh, rank 0 writes
+        and the others return at once (a rank that then reads the file
+        waits for it, e.g. at a barrier); every rank can load it."""
+        if not self.is_writer:
+            return
         kb = self.kfbuf
         n = kb.count
         save_checkpoint(path, {
@@ -1160,7 +1198,7 @@ class SLAM:
         # profile_after for profile_frames more frames, written into
         # profile_dir (TensorBoard's and Chrome's trace format)
         res = self.config.get("Results", {})
-        profile_dir = res.get("profile_dir")
+        profile_dir = res.get("profile_dir") if self.is_writer else None
         profile_after = int(res.get("profile_after", 5))
         profile_frames = int(res.get("profile_frames", 10))
         profiler = None

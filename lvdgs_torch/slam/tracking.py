@@ -1,5 +1,6 @@
-"""Frame-to-map tracking (PyTorch port of ``track_camera`` and
-``track_camera_pyramid`` in ``lvdgs_tpu/slam/tracking.py``).
+"""Frame-to-map tracking (PyTorch port of ``track_camera``,
+``track_camera_pyramid`` and ``track_camera_sharded`` in
+``lvdgs_tpu/slam/tracking.py``).
 
 Up to `max_iters` Adam steps over a 6-dof se(3) pose delta and an affine
 exposure (a, b), each rendering the map and differentiating the
@@ -31,10 +32,14 @@ import torch
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
 from ..core.losses import get_median_depth
+from ..ops import rasterizer as rz
 from ..ops.rasterizer import (
     PackedBins, RenderConfig, pose_lin_gather, prepare_bins_with_caps, rasterize, rasterize_lin,
     rasterize_pose_lin,
 )
+from ..ops.rasterizer_cuda import blend_packed
+from ..parallel.collectives import all_gather_tiled, all_reduce_flat, all_reduce_sum
+from ..parallel.mesh import dim_group, dim_rank, dim_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,3 +283,185 @@ def track_camera_pyramid(params, active, cam: Camera, intr: Intrinsics, rcfg: Re
     tcfg_f = dataclasses.replace(tcfg, plateau_min_iters=tcfg.fine_min_iters)
     res_f = track_camera(params, active, cam_f, intr, rcfg, tcfg_f)
     return res_f._replace(iterations=res_c.iterations + res_f.iterations)
+
+
+class ShardLayout(NamedTuple):
+    """One rank's block of the tile-sharded tracker's padded tile grid:
+    ntx_p columns (a multiple of the tile group, so that groups never
+    straddle a tile row) by nty_p rows, cut into blocks of rows_per tile
+    rows; this rank's block starts at tile row row0, global tile id tile0
+    (the packed kernels' goff), and holds T_local tiles in groups_per
+    groups."""
+    ntx_p: int
+    nty_p: int
+    rows_per: int
+    T_local: int
+    groups_per: int
+    row0: int
+    tile0: int
+
+
+def shard_layout(intr: Intrinsics, rcfg: RenderConfig, n_ranks: int, rank: int) -> ShardLayout:
+    ts, TG = rcfg.tile_size, rcfg.tile_group
+    ntx, nty = -(-intr.width // ts), -(-intr.height // ts)
+    ntx_p = -(-ntx // TG) * TG
+    rows_per = -(-nty // n_ranks)
+    T_local = ntx_p * rows_per
+    return ShardLayout(ntx_p=ntx_p, nty_p=rows_per * n_ranks, rows_per=rows_per, T_local=T_local,
+                       groups_per=T_local // TG, row0=rank * rows_per, tile0=rank * rows_per * ntx_p)
+
+
+@torch.no_grad()
+def shard_bins(params, active, R, T, intr: Intrinsics, rcfg: RenderConfig, lay: ShardLayout,
+               margin: float) -> PackedBins:
+    """A rank's packed bins: binned on the padded grid, its block's tiles
+    sliced out and packed at the budget (no saturation caps), as the
+    reference's sharded tracker packs them."""
+    proj = rz.project_gaussians(params["means"], params["quats"], params["log_scales"], active, R, T, intr)
+    tile_idx, slot_valid = rz.bin_gaussians(
+        proj["mean2d"], proj["radius"], proj["depth"], proj["valid"], margin, ntx=lay.ntx_p, nty=lay.nty_p,
+        tile_size=rcfg.tile_size, max_per_tile=rcfg.max_per_tile, tile_chunk=rcfg.tile_chunk,
+        coarse_factor=rcfg.coarse_factor, max_per_coarse=rcfg.max_per_coarse, bin_bucket=rcfg.bin_bucket)
+    budget = rcfg.slot_budget_per_tile if rcfg.use_packed else rcfg.max_per_tile
+    rows = slice(lay.tile0, lay.tile0 + lay.T_local)
+    return rz.pack_bins(tile_idx[rows], slot_valid[rows], params["means"].shape[0], tile_group=rcfg.tile_group,
+                        slot_budget_per_tile=budget)
+
+
+def track_camera_sharded(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConfig,
+                         tcfg: TrackingConfig, mesh) -> TrackResult:
+    """Tile-sharded tracking over the mesh's "data" ranks (port of the
+    reference's track_camera_sharded); every rank calls it with the same
+    inputs and gets the same result.
+
+    The tile grid is padded so that tile groups never straddle a tile row
+    (ntx_p columns) and split into contiguous blocks of rows_per tile rows,
+    one per rank. Each step, each rank bins, packs and blends only its rows
+    (the packed kernels take the block's first tile id as their offset
+    goff), takes its part of the masked L1 loss, normalised by the global
+    3*H*W, and one all-reduce sums (loss, 6 pose and 2 exposure gradients)
+    over the ranks, so every rank takes the same Adam step and the same
+    plateau exit. Projection stays replicated. The packs run at the
+    budget without saturation caps, and the steps render exactly (no
+    period linearisation), as in the reference. A final local render at
+    the converged pose gives the touch counts, summed over the ranks; the
+    last step's rows are all-gathered into the frame, whose median depth
+    is taken whole."""
+    group = dim_group(mesh, "data")
+    lay = shard_layout(intr, rcfg, dim_size(mesh, "data"), dim_rank(mesh, "data"))
+    ts = rcfg.tile_size
+    H, W = intr.height, intr.width
+    hl, Wp = lay.rows_per * ts, lay.ntx_p * ts
+    C = params["means"].shape[0]
+    params = {k: v.detach() for k, v in params.items()}
+    dev = cam.image.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # the packed kernels' global tile-id offset: the block's tile ids start
+    # at 0, its pixel coordinates are the frame's
+    goff = torch.tensor([lay.tile0], dtype=torch.int32, device=dev)
+
+    rgb_mask = (cam.image.sum(dim=0) > tcfg.rgb_boundary_threshold) & cam.grad_mask
+    if tcfg.use_static_mask:
+        rgb_mask = rgb_mask & cam.static_mask
+
+    def rows_of(x):
+        """(c, H, W) -> this rank's rows of the padded frame (c, hl, Wp)."""
+        full = torch.zeros((x.shape[0], lay.nty_p * ts, Wp), **f32)
+        full[:, :H, :W] = x
+        return full[:, lay.row0 * ts:lay.row0 * ts + hl]
+
+    mask_l = rows_of(rgb_mask[None])
+    gt_masked_l = rows_of(cam.image) * mask_l
+    colors, opac = rz._blend_inputs(params, active)
+    bg = rz._background(rcfg, dev)
+    lr_tau = torch.tensor([tcfg.lr_trans] * 3 + [tcfg.lr_rot] * 3, **f32)
+    b1, b2 = tcfg.b1, tcfg.b2
+
+    def render_local(tau, R, T, pb: rz.PackedBins, need_nt: bool):
+        """This rank's rows: image (3, hl, Wp), depth and opacity (1, hl,
+        Wp), and (with need_nt) per-Gaussian touch counts."""
+        Rn, Tn = lie.apply_delta(R, T, tau)
+        proj = rz.project_gaussians(params["means"], params["quats"], params["log_scales"], active, Rn, Tn,
+                                    intr)
+        tp = rz._gather_rows(rz._fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"]),
+                             pb.gid)
+        acc, trans, nt = blend_packed(tp, pb.cg, pb.k0, goff, pb.tids, lay.groups_per, lay.ntx_p, need_nt,
+                                      rcfg.blend_bf16)
+        img_t, dep_t, alpha_t = rz._packed_to_tiles(acc, trans, pb.inv, lay.T_local, bg)
+        rows = lambda t: rz._tiles_to_image(t, lay.ntx_p, lay.rows_per, ts, hl, Wp)  # noqa: E731
+        n_touched = rz._n_touched_packed(pb.gid, nt, C) if need_nt else None
+        return rows(img_t).permute(2, 0, 1), rows(dep_t)[None], rows(alpha_t)[None], n_touched
+
+    def step(s: dict, pb) -> dict:
+        """One Adam step on the all-reduced gradients; a state already
+        `done` passes through unchanged."""
+        tau = torch.zeros(6, **f32, requires_grad=True)
+        ab = s["ab"].detach().requires_grad_(True)
+        img, dep, alpha, _ = render_local(tau, s["R"], s["T"], pb, False)
+        image_ab = torch.exp(ab[0]) * img + ab[1]
+        loss_l = (alpha * (image_ab * mask_l - gt_masked_l).abs()).sum() / (3.0 * H * W)
+        g_tau, g_ab = torch.autograd.grad(loss_l, (tau, ab))
+        with torch.no_grad():
+            loss, g_tau, g_ab = all_reduce_flat([loss_l.detach().reshape(1), g_tau, g_ab], group)
+            loss = loss[0]
+            g_tau = torch.where(torch.isfinite(g_tau), g_tau, torch.zeros_like(g_tau))
+            g_ab = torch.where(torch.isfinite(g_ab), g_ab, torch.zeros_like(g_ab))
+            run = ~s["done"]
+            it = s["it"] + run.to(torch.int32)
+            itf = it.to(torch.float32)
+            c1, c2 = 1 - b1**itf, 1 - b2**itf
+            m_tau = b1 * s["m_tau"] + (1 - b1) * g_tau
+            v_tau = b2 * s["v_tau"] + (1 - b2) * g_tau * g_tau
+            tau_new = -lr_tau * (m_tau / c1) / (torch.sqrt(v_tau / c2) + tcfg.adam_eps)
+            m_ab = b1 * s["m_ab"] + (1 - b1) * g_ab
+            v_ab = b2 * s["v_ab"] + (1 - b2) * g_ab * g_ab
+            ab_new = s["ab"] - tcfg.lr_exposure * (m_ab / c1) / (torch.sqrt(v_ab / c2) + tcfg.adam_eps)
+            R, T = lie.apply_delta(s["R"], s["T"], tau_new)
+            new = dict(R=R, T=T, ab=ab_new, m_tau=m_tau, v_tau=v_tau, m_ab=m_ab, v_ab=v_ab, it=it,
+                       done=torch.linalg.norm(tau_new) < tcfg.convergence_eps,
+                       image=img.detach(), depth=dep.detach(), opacity=alpha.detach(), loss=loss)
+            return {k: torch.where(run, v, s[k]) for k, v in new.items()}
+
+    s = dict(
+        R=cam.R.to(**f32), T=cam.T.to(**f32),
+        ab=torch.stack([cam.exposure_a, cam.exposure_b]).to(**f32),
+        m_tau=torch.zeros(6, **f32), v_tau=torch.zeros(6, **f32),
+        m_ab=torch.zeros(2, **f32), v_ab=torch.zeros(2, **f32),
+        it=torch.zeros((), dtype=torch.int32, device=dev),
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        image=torch.zeros((3, hl, Wp), **f32), depth=torch.zeros((1, hl, Wp), **f32),
+        opacity=torch.zeros((1, hl, Wp), **f32), loss=torch.zeros((), **f32),
+    )
+    it_host, done_host = 0, False
+    while not done_host and it_host < tcfg.max_iters:
+        pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
+        prev_loss = s["loss"]
+        # the period's first step is unconditional; its loss is the plateau
+        # baseline of the first period
+        s1 = step(s, pb)
+        s2 = s1
+        for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
+            s2 = step(s2, pb)
+        if tcfg.plateau_tol > 0:
+            # the losses are all-reduced: every rank takes the same exit
+            base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
+            plateau = ((base > 0) & (s2["it"] >= tcfg.plateau_min_iters)
+                       & (base - s2["loss"] < tcfg.plateau_tol * base))
+            s2["done"] = s2["done"] | plateau
+        s = s2
+        it_f, done_f = torch.stack([s["it"].to(torch.float32), s["done"].to(torch.float32)]).tolist()
+        it_host, done_host = int(it_f), bool(done_f)
+
+    # one local render at the converged pose for the visibility bookkeeping
+    with torch.no_grad():
+        pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
+        nt_local = render_local(torch.zeros(6, **f32), s["R"], s["T"], pb, True)[3]
+    n_touched = all_reduce_sum(nt_local, group)
+    # the frame from the ranks' rows: one all-gather
+    frame = all_gather_tiled(torch.cat([s["image"], s["depth"], s["opacity"]]), group, dim=1)[:, :H, :W]
+    image, depth, opacity = frame[:3], frame[3:4], frame[4:5]
+    return TrackResult(
+        R=s["R"], T=s["T"], exposure_a=s["ab"][0], exposure_b=s["ab"][1],
+        image=image, depth=depth, opacity=opacity, n_touched=n_touched,
+        median_depth=get_median_depth(depth, opacity), iterations=it_host, loss=s["loss"],
+    )

@@ -142,3 +142,26 @@ def main_path_dense_block(slam, intr=None):
     colors, opac = tr._blend_inputs(p, active)
     tp = tr._tile_params(tile_idx, proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
     return tp, slot_valid.sum(dim=1, dtype=torch.int32), ntx
+
+
+def sharded_track_block(slam, n_ranks: int, rank: int):
+    """The packed block one rank of the tile-sharded tracker blends at a
+    run's end: the final map seen from the newest keyframe's pose, binned
+    on the padded grid and its rank's rows packed at the tracking budget
+    without caps (slam.tracking.shard_bins). Returns (packed inputs with
+    goff the block's first tile id, G, ntx_p): the kernels launch it at
+    (NB, G) = (inputs[0].shape[0], G)."""
+    from ..ops import rasterizer as tr
+    from ..slam.tracking import shard_bins, shard_layout
+
+    p, active = slam.gmap.params(), slam.gmap.active
+    slot = slam.kf_slots[slam.kf_indices[-1]]
+    R, T = slam.kfbuf.R[slot], slam.kfbuf.T[slot]
+    cfg = slam.rcfg_track
+    lay = shard_layout(slam.intr, cfg, n_ranks, rank)
+    proj = tr.project_gaussians(p["means"], p["quats"], p["log_scales"], active, R, T, slam.intr)
+    colors, opac = tr._blend_inputs(p, active)
+    fields = tr._fields(proj["mean2d"], proj["conic"], colors, opac, proj["depth"])
+    pb = shard_bins(p, active, R, T, slam.intr, cfg, lay, margin=0.0)
+    goff = torch.tensor([lay.tile0], dtype=torch.int32, device=fields.device)
+    return [tr._gather_rows(fields, pb.gid).contiguous(), pb.cg, pb.k0, goff, pb.tids], lay.groups_per, lay.ntx_p

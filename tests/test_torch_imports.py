@@ -53,7 +53,9 @@ def test_every_module_imports_without_gpu_or_nvcc():
         "           'lvdgs_torch.eval.viz', 'lvdgs_torch.gui.gui_utils', 'lvdgs_torch.io.colmap',\n"
         "           'lvdgs_torch.tools.colmap_export', 'lvdgs_torch.tools.batch_detect',\n"
         "           'lvdgs_torch.tools.semantic_label', 'lvdgs_torch.tools.dinov2_analyze',\n"
-        "           'lvdgs_torch.tools.sam_setup', 'lvdgs_torch.tools.gen_prompt_vocab'} - set(names)\n"
+        "           'lvdgs_torch.tools.sam_setup', 'lvdgs_torch.tools.gen_prompt_vocab',\n"
+        "           'lvdgs_torch.parallel.mesh', 'lvdgs_torch.parallel.collectives',\n"
+        "           'lvdgs_torch.parallel.launch', 'lvdgs_torch.parallel.dp_mapping'} - set(names)\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "assert not bad, bad\n"

@@ -37,11 +37,11 @@ from lvdgs_torch.tools import perf_resident as pr
 from torch_parity import cuda_device, make_scene_np  # noqa: F401
 
 
-def _random_block(K, T, seed, device, ntx=8):
+def _random_block(K, T, seed, device, ntx=8, t0=0):
     """Random depth-sorted slot lists with ragged counts (some empty, some
-    full)."""
+    full), around the tiles t0, ..., t0 + T - 1 of a grid ntx tiles wide."""
     g = np.random.default_rng(seed)
-    tid = np.arange(T)
+    tid = np.arange(T) + t0
     cx = (tid % ntx) * 16 + 8.0
     cy = (tid // ntx) * 16 + 8.0
     tp = np.zeros((K, T, rc.NF), np.float32)
@@ -89,10 +89,11 @@ def test_kernels_match_plain(cuda_device, K, T):
     torch.cuda.synchronize()
 
 
-def _packed_block(T, ntx, budget, K, seed, device, sort_by_depth=True, TG=16):
+def _packed_block(T, ntx, budget, K, seed, device, sort_by_depth=True, TG=16, goff=0):
     """A packed block made by pack_bins from a random dense block of depth-
-    sorted slot lists (sorted grouping with random caps, or plain grouping)."""
-    tp, counts, _ = _random_block(K, T, seed, "cpu", ntx)
+    sorted slot lists (sorted grouping with random caps, or plain grouping),
+    whose tiles start at the global tile id goff."""
+    tp, counts, _ = _random_block(K, T, seed, "cpu", ntx, t0=goff)
     C = K * T
     tile_idx = torch.arange(C).reshape(T, K)  # row t * K + k of fields is tp[k, t]
     slot_valid = torch.arange(K)[None] < counts[:, None].long()
@@ -105,7 +106,7 @@ def _packed_block(T, ntx, budget, K, seed, device, sort_by_depth=True, TG=16):
                       tile_cap=cap, sort_by_depth=sort_by_depth)
     ptp = tr._gather_rows(fields, pb.gid).contiguous()
     G = -(-T // TG)
-    return [x.to(device) for x in (ptp, pb.cg, pb.k0, torch.zeros(1, dtype=torch.int32), pb.tids)], G
+    return [x.to(device) for x in (ptp, pb.cg, pb.k0, torch.tensor([goff], dtype=torch.int32), pb.tids)], G
 
 
 @pytest.mark.cuda
@@ -153,6 +154,39 @@ def test_packed_bf16_kernels_match_plain(cuda_device, with_nt, T, ntx, budget, K
     _rel_close(dtp, dtp_p, 1e-5)
     assert torch.equal(rc.packed_blend_backward_bf16(*args, march, acc, trans, dacc, dtrans, G, ntx),
                        dtp)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,ntx,budget,K,goff", [(40, 8, 96, 128, 40), (160, 80, 96, 256, 960)])
+def test_packed_kernels_match_plain_at_tile_offset(cuda_device, bf16, T, ntx, budget, K, goff):
+    """B4 (with and without touch counts) and B5, float32 and bf16, on a
+    plain pack whose tiles start at global tile id goff, as each rank of
+    the tile-sharded tracker blends its rows (960: the second of two ranks
+    on the street's 80-wide padded grid), at the tolerances above."""
+    args, G = _packed_block(T, ntx, budget, K, T + K, cuda_device, sort_by_depth=False, goff=goff)
+    fwd = rc.packed_blend_forward_bf16 if bf16 else rc.packed_blend_forward
+    bwd = rc.packed_blend_backward_bf16 if bf16 else rc.packed_blend_backward
+    for with_nt in (True, False):
+        acc, trans, nt, march = fwd(*args, G, ntx, with_nt=with_nt)
+        acc_p, trans_p, nt_p, march_p = rc.packed_blend_forward_plain(*args, G, ntx, with_nt=with_nt,
+                                                                      bf16=bf16)
+        tol = 0.0 if bf16 else 1e-5
+        torch.testing.assert_close(acc, acc_p, atol=tol, rtol=0)
+        torch.testing.assert_close(trans, trans_p, atol=tol, rtol=0)
+        assert torch.equal(nt, nt_p) and torch.equal(march, march_p)
+        assert bool(nt.any()) == with_nt
+    # the offset places the pixels: at goff 0 the same slots render elsewhere
+    at0 = [*args[:3], torch.zeros_like(args[3]), args[4]]
+    assert not torch.equal(fwd(*at0, G, ntx, with_nt=False)[0], acc)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dacc = torch.randn(acc.shape, device=cuda_device, generator=g)
+    dtrans = torch.randn(trans.shape, device=cuda_device, generator=g)
+    dtp = bwd(*args, march, acc, trans, dacc, dtrans, G, ntx)
+    dtp_p = rc.packed_blend_backward_plain(*args, acc, trans, dacc, dtrans, G, ntx, bf16=bf16)
+    _rel_close(dtp, dtp_p, 1e-5)
+    assert torch.equal(bwd(*args, march, acc, trans, dacc, dtrans, G, ntx), dtp)
     torch.cuda.synchronize()
 
 

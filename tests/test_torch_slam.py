@@ -461,13 +461,15 @@ def test_slam_defaults_to_cuda_and_refuses_unported_paths(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SLAM(copy.deepcopy(cfg))
-    # data-parallel mapping: single-device on one device, as the reference
-    # runs it without a mesh; refused (A15) where more devices are visible
+    # data-parallel: single-device on one device, as the reference runs it
+    # without a mesh; where more devices are visible, it needs one process
+    # per device (python -m lvdgs_torch, or a mesh from
+    # lvdgs_torch.parallel) and is refused rather than run on one of them
     c = copy.deepcopy(cfg)
     c["Performance"]["data_parallel"] = True
-    SLAM(copy.deepcopy(c), device="cpu")
+    assert SLAM(copy.deepcopy(c), device="cpu").mesh is None
     monkeypatch.setattr(tsys, "_device_count", lambda dev: 4)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="python -m lvdgs_torch.*lvdgs_torch.parallel"):
         SLAM(c, device="cpu")
     monkeypatch.undo()
     # carried since A14: the GUI feed, the depth-comparison figures and the
