@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .camera import Camera
+from .log import device_constant, sync
 
 # ----------------------------------------------------------------------------
 # image gradients
@@ -29,8 +30,7 @@ def _reflect_pad_hw(img: torch.Tensor, pad: int = 1) -> torch.Tensor:
 def _depthwise_conv3x3(img: torch.Tensor, kernel) -> torch.Tensor:
     """Valid 3x3 depthwise conv over (C, H+2, W+2) -> (C, H, W)."""
     c = img.shape[0]
-    k = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)
-    w = k.expand(c, 1, 3, 3).contiguous()
+    w = device_constant(kernel, img.dtype, img.device).expand(c, 1, 3, 3).contiguous()
     return F.conv2d(img[None], w, groups=c)[0]
 
 
@@ -103,7 +103,9 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     n = mask.sum()
     lo = torch.clamp((n - 1) // 2, 0, flat.shape[0] - 1)
     hi = torch.clamp(n // 2, 0, flat.shape[0] - 1)
-    return 0.5 * (s[lo] + s[hi])
+    with sync():  # indexing by a device scalar reads it
+        a, b = s[lo], s[hi]
+    return 0.5 * (a + b)
 
 
 # ----------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera, Intrinsics
+from ..core.log import device_constant, sync
 from ..ops.rasterizer import SH_C0, quat_to_rotmat
 
 # learnable field names (everything else is bookkeeping)
@@ -61,7 +62,8 @@ class GaussianMap:
 
     @property
     def num_active(self) -> int:
-        return int(self.active.sum())
+        with sync():
+            return int(self.active.sum())
 
     @property
     def scaling(self) -> torch.Tensor:
@@ -138,9 +140,13 @@ def _alloc_destinations(active: torch.Tensor, want: torch.Tensor) -> Tuple[torch
 def _scatter_rows(arr: torch.Tensor, dest: torch.Tensor, ok: torch.Tensor, vals) -> None:
     """arr[dest[ok]] = vals[ok], in place. `dest` holds distinct slots where
     `ok`, so the write order does not matter."""
+    with sync():  # the mask's rows, counted on the host
+        rows = ok.nonzero()[:, 0]
+    slots = dest[rows]
     if isinstance(vals, torch.Tensor):
-        vals = vals[ok]
-    arr[dest[ok]] = vals
+        arr[slots] = vals[rows]
+    else:  # a host scalar: a kernel argument, where an index_put would copy it
+        arr.index_fill_(0, slots, vals)
 
 
 def zero_adam_slots(opt_state: AdamState, dest: torch.Tensor, ok: torch.Tensor) -> None:
@@ -237,7 +243,7 @@ def seed_from_depth(gmap: GaussianMap, cam: Camera, depth: torch.Tensor, intr: I
         means=pts,
         features_dc=(rgb - 0.5) / SH_C0,
         log_scales=torch.log(scale)[:, None].expand(P, 3),
-        quats=torch.tensor([1.0, 0.0, 0.0, 0.0], device=pts.device).expand(P, 4),
+        quats=device_constant((1.0, 0.0, 0.0, 0.0), torch.float32, pts.device).expand(P, 4),
         logit_opacities=init_logit,
         kf_id=int(kf_id),
     )

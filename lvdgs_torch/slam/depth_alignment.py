@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..core.log import device_constant
+
 
 class AlignResult(NamedTuple):
     final_depth: torch.Tensor  # (H, W) fused depth
@@ -76,9 +78,9 @@ def align_scale(
         mask_img = pix_ok.permute(0, 2, 1, 3).reshape(nh * ps, nw * ps)[:H, :W]
         return new_scale, n_acc, mask_img
 
-    scale = torch.tensor(1.0, dtype=torch.float32, device=dev)
-    prev = torch.tensor(0.0, dtype=torch.float32, device=dev)
-    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+    scale = device_constant(1.0, torch.float32, dev)
+    prev = device_constant(0.0, torch.float32, dev)
+    n_acc = device_constant(0, torch.int32, dev)
     for k in range(max_iter):
         converged = ((scale - prev).abs() < epsilon) & (scale != 1.0)
         new_scale, new_nacc, _new_mask = one_iter(scale)

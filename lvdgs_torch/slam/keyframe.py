@@ -9,6 +9,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.log import sync
+
 
 def _overlap_ratio_union(vis_a: torch.Tensor, vis_b: torch.Tensor) -> float:
     union = int(torch.count_nonzero(vis_a | vis_b))
@@ -28,7 +30,9 @@ def visibility_window_stats(curr_vis: torch.Tensor, occ_stack: torch.Tensor) -> 
     cv = curr_vis.to(torch.int32)
     o = occ_stack.to(torch.int32)
     inter = (o * cv[None, :]).sum(dim=1)
-    return torch.stack([inter, o.sum(dim=1), torch.full_like(inter, int(cv.sum()))], dim=1)
+    with sync():
+        n_curr = int(cv.sum())
+    return torch.stack([inter, o.sum(dim=1), torch.full_like(inter, n_curr)], dim=1)
 
 
 def _overlap_ratio_min(vis_a: torch.Tensor, vis_b: torch.Tensor) -> float:

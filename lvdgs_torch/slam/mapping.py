@@ -34,6 +34,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Intrinsics
+from ..core.log import count, device_constant, span, sync
 from ..core.losses import isotropic_reg, l1_loss, loss_mapping_masked, ssim
 from ..gaussian import model as gm
 from ..ops.rasterizer import RenderConfig, prepare_bins, prepare_bins_with_touched, rasterize
@@ -144,8 +145,9 @@ def mapping_run(
     window_valid = [s >= 0 for s in window_slots]
     safe_slots = [min(max(s, 0), M - 1) for s in window_slots]
     valid_idx = [i for i in range(Ws) if window_valid[i]]
-    vslots = torch.tensor([safe_slots[i] for i in valid_idx], dtype=torch.long, device=dev)
-    window_frame_idx = kfbuf.frame_idx[vslots].tolist() if valid_idx else []
+    with sync():
+        vslots = torch.tensor([safe_slots[i] for i in valid_idx], dtype=torch.long, device=dev)
+        window_frame_idx = kfbuf.frame_idx[vslots].tolist() if valid_idx else []
     frame_of = dict(zip(valid_idx, window_frame_idx))
 
     # replay eligibility: stored and not in the window
@@ -157,21 +159,20 @@ def mapping_run(
     pose_mask = [window_valid[i] and frame_of.get(i) != 0 and i < mcfg.pose_window and mcfg.up_pose
                  for i in range(Ws)]
     expo_mask = [window_valid[i] and frame_of.get(i) != 0 for i in range(Ws)]
-    pose_m = torch.tensor(pose_mask, device=dev)[:, None]
-    expo_m = torch.tensor(expo_mask, device=dev)[:, None]
-
     f32 = dict(dtype=torch.float32, device=dev)
-    Rw = kfbuf.R[torch.tensor(safe_slots, device=dev)].clone()
-    Tw = kfbuf.T[torch.tensor(safe_slots, device=dev)].clone()
-    abw = kfbuf.exposure_ab[torch.tensor(safe_slots, device=dev)].clone()
+    with sync():  # the run's host lists onto the device
+        pose_m, expo_m, slots = (torch.tensor(x, device=dev) for x in (pose_mask, expo_mask, safe_slots))
+    pose_m, expo_m = pose_m[:, None], expo_m[:, None]
+    Rw, Tw, abw = kfbuf.R[slots].clone(), kfbuf.T[slots].clone(), kfbuf.exposure_ab[slots].clone()
+    lr_tau = device_constant((mcfg.lr_trans,) * 3 + (mcfg.lr_rot,) * 3, torch.float32, dev)
     m_tau, v_tau = torch.zeros((Ws, 6), **f32), torch.zeros((Ws, 6), **f32)
     m_ab, v_ab = torch.zeros((Ws, 2), **f32), torch.zeros((Ws, 2), **f32)
     occ_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
-    lr_tau = torch.tensor([mcfg.lr_trans] * 3 + [mcfg.lr_rot] * 3, **f32)
     loss_out = torch.zeros((), **f32)
     it_count = int(iteration_count)
     local_it = int(local_it0)
     local_end = local_it + int(n_iters)
+    cam_iters = 0  # this process's rendered cameras, summed over iterations
 
     # per-camera targets, fixed for the run
     def targets(slot):
@@ -187,7 +188,8 @@ def mapping_run(
     # cameras and cameras without a mask take the plain one
     masked_cams = {}
     if mcfg.use_masked_loss and not mcfg.initialization and valid_idx:
-        has_static = kfbuf.has_static[vslots].tolist()
+        with sync():
+            has_static = kfbuf.has_static[vslots].tolist()
         masked_cams = {i: camera_from_slot(kfbuf, safe_slots[i])
                        for i, h in zip(valid_idx, has_static) if h}
     bg = torch.full((3,), 1.0 if rcfg.white_background else 0.0, dtype=torch.float32, device=dev)
@@ -197,49 +199,52 @@ def mapping_run(
         group, n_ranks, rank = dim_group(mesh, "data"), dim_size(mesh, "data"), dim_rank(mesh, "data")
 
     while local_it < local_end:
-        # --- per-period work: replay draw and binning at current poses ---
-        if Nr > 0:
-            r1, r2 = draw_replay(n_elig, generator)
-            # with no eligible keyframe the draw is unused (zero weight)
-            replay_slots = [elig_order[r] if r < n_elig else 0 for r in (r1, r2)][:Nr]
-        else:
-            replay_slots = []
-        replay_w = [float(n_elig > 0), float(n_elig > 1)][:Nr]
-        # the reference map() is a no-op on an empty window
-        if not valid_idx or mcfg.initialization:
-            replay_w = [0.0] * Nr
-        cams = [("w", i) for i in valid_idx] + [
-            ("r", r) for r in range(len(replay_slots)) if replay_w[r] > 0
-        ]
-        # this rank's cameras: all of them on one device, else its block
-        per = -(-len(cams) // n_ranks)
-        mine = cams[rank * per:(rank + 1) * per]
-        with torch.no_grad():
-            p0 = gmap.params()
-            bins = {}
-            if use_fb:
-                # this period's full-depth probe visibility of the window
-                occ_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
-            for kind, j in mine:
-                R, T = (Rw[j], Tw[j]) if kind == "w" else (kfbuf.R[replay_slots[j]], kfbuf.T[replay_slots[j]])
-                if use_fb and kind == "w":
-                    bins[(kind, j)], occ_vis[j] = prepare_bins_with_touched(
-                        p0, gmap.active, R, T, intr, rcfg, margin=mcfg.bin_margin)
-                else:
-                    bins[(kind, j)] = prepare_bins(p0, gmap.active, R, T, intr, rcfg,
-                                                   margin=mcfg.bin_margin)
-            if use_fb and group is not None:
-                rows = torch.zeros((per, C), dtype=torch.bool, device=dev)
-                for i, (kind, j) in enumerate(mine):
-                    if kind == "w":
-                        rows[i] = occ_vis[j]
-                rows = all_gather_tiled(rows, group)
-                for i, (kind, j) in enumerate(cams):
-                    if kind == "w":
-                        occ_vis[j] = rows[i]
-        replay_targets = {j: targets(replay_slots[j]) for kind, j in cams if kind == "r"}
+        with span("map.bin"):
+            # --- per-period work: replay draw and binning at current poses ---
+            if Nr > 0:
+                r1, r2 = draw_replay(n_elig, generator)
+                # with no eligible keyframe the draw is unused (zero weight)
+                replay_slots = [elig_order[r] if r < n_elig else 0 for r in (r1, r2)][:Nr]
+            else:
+                replay_slots = []
+            replay_w = [float(n_elig > 0), float(n_elig > 1)][:Nr]
+            # the reference map() is a no-op on an empty window
+            if not valid_idx or mcfg.initialization:
+                replay_w = [0.0] * Nr
+            cams = [("w", i) for i in valid_idx] + [
+                ("r", r) for r in range(len(replay_slots)) if replay_w[r] > 0
+            ]
+            # this rank's cameras: all of them on one device, else its block
+            per = -(-len(cams) // n_ranks)
+            mine = cams[rank * per:(rank + 1) * per]
+            with torch.no_grad():
+                p0 = gmap.params()
+                bins = {}
+                if use_fb:
+                    # this period's full-depth probe visibility of the window
+                    occ_vis = torch.zeros((Ws, C), dtype=torch.bool, device=dev)
+                for kind, j in mine:
+                    R, T = ((Rw[j], Tw[j]) if kind == "w"
+                            else (kfbuf.R[replay_slots[j]], kfbuf.T[replay_slots[j]]))
+                    if use_fb and kind == "w":
+                        bins[(kind, j)], occ_vis[j] = prepare_bins_with_touched(
+                            p0, gmap.active, R, T, intr, rcfg, margin=mcfg.bin_margin)
+                    else:
+                        bins[(kind, j)] = prepare_bins(p0, gmap.active, R, T, intr, rcfg,
+                                                       margin=mcfg.bin_margin)
+                if use_fb and group is not None:
+                    rows = torch.zeros((per, C), dtype=torch.bool, device=dev)
+                    for i, (kind, j) in enumerate(mine):
+                        if kind == "w":
+                            rows[i] = occ_vis[j]
+                    rows = all_gather_tiled(rows, group)
+                    for i, (kind, j) in enumerate(cams):
+                        if kind == "w":
+                            occ_vis[j] = rows[i]
+            replay_targets = {j: targets(replay_slots[j]) for kind, j in cams if kind == "r"}
 
         stop_at = min(local_it + mcfg.rebin_every, local_end)
+        cam_iters += len(mine) * (stop_at - local_it)
         while local_it < stop_at:
             it_count += 1
             local_it += 1
@@ -251,71 +256,73 @@ def mapping_run(
             need_nt = (reset_pred or local_it >= local_end) and not use_fb
 
             # --- per-camera losses; one backward for all of them ---
-            params = {k: v.detach().requires_grad_(True) for k, v in gmap.params().items()}
-            active = gmap.active
-            total = torch.zeros((), **f32)
-            taus, abs_, vss, vis_l, radii_l, nt_l = {}, {}, {}, {}, {}, {}
-            for kind, j in mine:
-                vs = torch.zeros((C, 2), **f32, requires_grad=True)
-                if kind == "w":
-                    tau = torch.zeros(6, **f32, requires_grad=True)
-                    ab = abw[j].detach().requires_grad_(True)
-                    taus[j], abs_[j] = tau, ab
-                    R, T = lie.apply_delta(Rw[j], Tw[j], tau)
-                    gt_m, mr, mono_m, md = window_targets[j]
-                    weight = 1.0
-                else:
-                    slot = replay_slots[j]
-                    ab = kfbuf.exposure_ab[slot]
-                    R, T = kfbuf.R[slot], kfbuf.T[slot]
-                    gt_m, mr, mono_m, md = replay_targets[j]
-                    weight = replay_w[j]
-                out = rasterize(params, active, R, T, intr, rcfg, vs_offset=vs,
-                                bins=bins[(kind, j)], need_n_touched=need_nt)
-                if kind == "w" and j in masked_cams:
-                    # the window camera's exposure gets no gradient here, as
-                    # in the reference
-                    li = loss_mapping_masked(out.image, out.depth, masked_cams[j], bg,
-                                             lambda_dssim=mcfg.lambda_dssim,
-                                             depth_lambda=mcfg.depth_lambda)
-                else:
-                    image = out.image if mcfg.initialization else torch.exp(ab[0]) * out.image + ab[1]
-                    li = mcfg.alpha * (image * mr - gt_m).abs().mean() + (1 - mcfg.alpha) * (
-                        out.depth * md - mono_m
-                    ).abs().mean()
-                total = total + li * weight
-                vss[(kind, j)] = vs
-                vis_l[(kind, j)] = out.visibility_filter
-                radii_l[(kind, j)] = out.radii
-                nt_l[(kind, j)] = out.n_touched
-            # isotropic regulariser (on a mesh: once, after the reduction)
-            iso = mcfg.isotropic_weight * isotropic_reg(torch.exp(params["log_scales"]), active)
-            if group is None:
-                total = total + iso
-            order = list(taus)
-            leaves = list(params.values()) + [vss[c] for c in mine] + [taus[j] for j in order] + [
-                abs_[j] for j in order
-            ]
-            # a rank without cameras has no graph: its gradients are zeros
-            grads = (torch.autograd.grad(total, leaves, allow_unused=True) if total.requires_grad
-                     else [None] * len(leaves))
-            nP = len(params)
-            g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
-                        for k, g in zip(params, grads[:nP])}
-            gvs_norm_of = {c: torch.linalg.norm(g, dim=-1) for c, g in zip(mine, grads[nP:nP + len(mine)])}
-            g_tau_of = dict(zip(order, grads[nP + len(mine):nP + len(mine) + len(order)]))
-            g_ab_of = dict(zip(order, grads[nP + len(mine) + len(order):]))
-            if group is not None:
-                with torch.no_grad():
-                    red = all_reduce_flat({"loss": total.detach().reshape(1), **g_params}, group)
-                    (g_iso,) = torch.autograd.grad(iso, params["log_scales"])
-                    total = red.pop("loss")[0] + iso.detach()
-                    g_params = {**red, "log_scales": red["log_scales"] + g_iso}
-                    g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l, nt_l = _share_cameras(
-                        mine, cams, per, C, group, need_nt, g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l,
-                        nt_l, dev)
+            with span("map.render"):
+                params = {k: v.detach().requires_grad_(True) for k, v in gmap.params().items()}
+                active = gmap.active
+                total = torch.zeros((), **f32)
+                taus, abs_, vss, vis_l, radii_l, nt_l = {}, {}, {}, {}, {}, {}
+                for kind, j in mine:
+                    vs = torch.zeros((C, 2), **f32, requires_grad=True)
+                    if kind == "w":
+                        tau = torch.zeros(6, **f32, requires_grad=True)
+                        ab = abw[j].detach().requires_grad_(True)
+                        taus[j], abs_[j] = tau, ab
+                        R, T = lie.apply_delta(Rw[j], Tw[j], tau)
+                        gt_m, mr, mono_m, md = window_targets[j]
+                        weight = 1.0
+                    else:
+                        slot = replay_slots[j]
+                        ab = kfbuf.exposure_ab[slot]
+                        R, T = kfbuf.R[slot], kfbuf.T[slot]
+                        gt_m, mr, mono_m, md = replay_targets[j]
+                        weight = replay_w[j]
+                    out = rasterize(params, active, R, T, intr, rcfg, vs_offset=vs,
+                                    bins=bins[(kind, j)], need_n_touched=need_nt)
+                    if kind == "w" and j in masked_cams:
+                        # the window camera's exposure gets no gradient here, as
+                        # in the reference
+                        li = loss_mapping_masked(out.image, out.depth, masked_cams[j], bg,
+                                                 lambda_dssim=mcfg.lambda_dssim,
+                                                 depth_lambda=mcfg.depth_lambda)
+                    else:
+                        image = out.image if mcfg.initialization else torch.exp(ab[0]) * out.image + ab[1]
+                        li = mcfg.alpha * (image * mr - gt_m).abs().mean() + (1 - mcfg.alpha) * (
+                            out.depth * md - mono_m
+                        ).abs().mean()
+                    total = total + li * weight
+                    vss[(kind, j)] = vs
+                    vis_l[(kind, j)] = out.visibility_filter
+                    radii_l[(kind, j)] = out.radii
+                    nt_l[(kind, j)] = out.n_touched
+                # isotropic regulariser (on a mesh: once, after the reduction)
+                iso = mcfg.isotropic_weight * isotropic_reg(torch.exp(params["log_scales"]), active)
+                if group is None:
+                    total = total + iso
+            with span("map.backward"):
+                order = list(taus)
+                leaves = list(params.values()) + [vss[c] for c in mine] + [taus[j] for j in order] + [
+                    abs_[j] for j in order
+                ]
+                # a rank without cameras has no graph: its gradients are zeros
+                grads = (torch.autograd.grad(total, leaves, allow_unused=True) if total.requires_grad
+                         else [None] * len(leaves))
+                nP = len(params)
+                g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
+                            for k, g in zip(params, grads[:nP])}
+                gvs_norm_of = {c: torch.linalg.norm(g, dim=-1) for c, g in zip(mine, grads[nP:nP + len(mine)])}
+                g_tau_of = dict(zip(order, grads[nP + len(mine):nP + len(mine) + len(order)]))
+                g_ab_of = dict(zip(order, grads[nP + len(mine) + len(order):]))
+                if group is not None:
+                    with torch.no_grad():
+                        red = all_reduce_flat({"loss": total.detach().reshape(1), **g_params}, group)
+                        (g_iso,) = torch.autograd.grad(iso, params["log_scales"])
+                        total = red.pop("loss")[0] + iso.detach()
+                        g_params = {**red, "log_scales": red["log_scales"] + g_iso}
+                        g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l, nt_l = _share_cameras(
+                            mine, cams, per, C, group, need_nt, g_tau_of, g_ab_of, gvs_norm_of, vis_l, radii_l,
+                            nt_l, dev)
 
-            with torch.no_grad():
+            with span("map.update"), torch.no_grad():
                 # densification stats over the rendered (valid) cameras
                 if cams:
                     vis_b = torch.stack([vis_l[c] for c in cams]) & active[None]
@@ -345,7 +352,9 @@ def mapping_run(
                     do_reset = it_count % mcfg.gaussian_reset == 0 and not do_densify
                     th, ext, max_screen = mcfg.gaussian_th, mcfg.gaussian_extent, mcfg.size_threshold
                 if do_densify:
-                    split_eps = torch.randn((2, C, 3), generator=generator).to(dev)
+                    split_eps = torch.randn((2, C, 3), generator=generator)
+                    with sync():
+                        split_eps = split_eps.to(dev)
                     vis_kept = gm.densify_and_prune(
                         gmap, split_eps, grad_threshold=mcfg.densify_grad_threshold,
                         min_opacity=th, extent=ext, max_screen_size=max_screen,
@@ -392,6 +401,7 @@ def mapping_run(
             kfbuf.R[safe_slots[i]] = Rw[i]
             kfbuf.T[safe_slots[i]] = Tw[i]
             kfbuf.exposure_ab[safe_slots[i]] = abw[i]
+    count("map.cam_iters", cam_iters)
     return MappingResult(occ_visibility=occ_vis, iteration_count=it_count, last_loss=loss_out)
 
 
@@ -456,7 +466,9 @@ def color_refine_run(
         ab = kfbuf.exposure_ab[slot]
         image = torch.exp(ab[0]) * out.image + ab[1]
         gt = kfbuf.images_u8[slot].to(torch.float32) / 255.0
-        if bool(kfbuf.has_static[slot]):
+        with sync():
+            has_static = bool(kfbuf.has_static[slot])
+        if has_static:
             static = kfbuf.static_mask[slot][None]
             image = torch.where(static, image, bg[:, None, None])
             gt = torch.where(static, gt, bg[:, None, None])
@@ -490,7 +502,7 @@ def global_ba_run(
     tests run on the device, so the loop never waits on it."""
     dev = gmap.device
     f32 = dict(dtype=torch.float32, device=dev)
-    lr_tau = torch.tensor([mcfg.lr_trans] * 3 + [mcfg.lr_rot] * 3, **f32)
+    lr_tau = device_constant((mcfg.lr_trans,) * 3 + (mcfg.lr_rot,) * 3, torch.float32, dev)
     for i in range(int(n_iters)):
         slot = int(torch.randint(0, max(kfbuf.count, 1), (), generator=generator))
         cam = camera_from_slot(kfbuf, slot)
@@ -519,11 +531,9 @@ def _prune_from_occ(gmap: gm.GaussianMap, occ_vis, window_slots: List[int], kfbu
     gmap.n_obs.copy_(n_obs)
     valid_slots = [s for s in window_slots if s >= 0]
     full_window = len(valid_slots) == window_size
-    frame_idx = sorted(
-        (kfbuf.frame_idx[torch.tensor(valid_slots, device=dev)].tolist() if valid_slots else [])
-        + [-1] * (Ws - len(valid_slots)),
-        reverse=True,
-    )
+    with sync():
+        live = kfbuf.frame_idx[torch.tensor(valid_slots, device=dev)].tolist() if valid_slots else []
+    frame_idx = sorted(live + [-1] * (Ws - len(valid_slots)), reverse=True)
     third_newest = frame_idx[min(2, Ws - 1)]
     recent = gmap.unique_kf_ids >= (third_newest if initialized else 0)
     to_prune = (n_obs <= prune_num) & recent & gmap.active & full_window
@@ -554,6 +564,7 @@ def covisibility_prune_from_occ(gmap: gm.GaussianMap, kfbuf: KeyframeBuffer,
                                 window_slots: List[int], occ_vis: torch.Tensor, initialized: bool,
                                 *, prune_num: int, window_size: int):
     """The same prune reusing a mapping run's final-iteration visibility."""
-    valid = torch.tensor([s >= 0 for s in window_slots], device=occ_vis.device)
+    with sync():
+        valid = torch.tensor([s >= 0 for s in window_slots], device=occ_vis.device)
     return _prune_from_occ(gmap, occ_vis & valid[:, None], window_slots, kfbuf, initialized,
                            prune_num=prune_num, window_size=window_size)

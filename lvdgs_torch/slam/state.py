@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from ..core.camera import Camera
+from ..core.log import sync
 
 
 @dataclasses.dataclass
@@ -57,7 +58,8 @@ def add_keyframe(buf: KeyframeBuffer, cam: Camera) -> int:
     """Append a camera in place; returns its slot. Overwrites the last slot
     when full."""
     slot = min(buf.count, buf.capacity - 1)
-    buf.frame_idx[slot] = cam.uid
+    # fill_ takes the host scalar as a kernel argument: no copy, no wait
+    buf.frame_idx[slot].fill_(cam.uid)
     buf.images_u8[slot] = torch.clamp(cam.image * 255.0 + 0.5, 0, 255).to(torch.uint8)
     buf.R[slot] = cam.R
     buf.T[slot] = cam.T
@@ -66,7 +68,7 @@ def add_keyframe(buf: KeyframeBuffer, cam: Camera) -> int:
     buf.mono_depth[slot] = cam.mono_depth
     buf.grad_mask[slot] = cam.grad_mask
     buf.static_mask[slot] = cam.static_mask
-    buf.has_static[slot] = cam.has_static_mask
+    buf.has_static[slot].fill_(cam.has_static_mask)
     buf.count = min(buf.count + 1, buf.capacity)
     return slot
 
@@ -74,8 +76,10 @@ def add_keyframe(buf: KeyframeBuffer, cam: Camera) -> int:
 def camera_from_slot(buf: KeyframeBuffer, slot: int) -> Camera:
     """A Camera view of one buffer slot."""
     s = min(max(int(slot), 0), buf.capacity - 1)
+    with sync():
+        uid, has_static = int(buf.frame_idx[s]), bool(buf.has_static[s])
     return Camera(
-        uid=int(buf.frame_idx[s]),
+        uid=uid,
         image=buf.images_u8[s].to(torch.float32) / 255.0,
         R=buf.R[s],
         T=buf.T[s],
@@ -87,5 +91,5 @@ def camera_from_slot(buf: KeyframeBuffer, slot: int) -> Camera:
         mono_depth=buf.mono_depth[s],
         grad_mask=buf.grad_mask[s],
         static_mask=buf.static_mask[s],
-        has_static_mask=bool(buf.has_static[s]),
+        has_static_mask=has_static,
     )

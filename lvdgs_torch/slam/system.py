@@ -65,7 +65,7 @@ import torch.nn.functional as F
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
 from ..core.config import DotDict
-from ..core.log import Log, PhaseTimer
+from ..core.log import Log, PhaseTimer, set_annotation, span, sync
 from ..core.losses import compute_grad_mask
 from ..data.datasets import load_dataset
 from ..data.prefetch import PrefetchLoader
@@ -196,9 +196,7 @@ class SLAM:
         self._bin_bucket_freeze = False
         # synced_timers: end each timed phase with a device synchronise so
         # the phase timers read device time (costs one sync per phase)
-        self.synced_timers = bool(int(os.environ.get("LVDGS_SYNCED_TIMERS", "0"))) or perf.get(
-            "synced_timers", False
-        )
+        self.synced_timers = perf.get("synced_timers", False)
         # LVDGS_NAN_SCAN=1: after every SLAM phase, count the non-finite rows
         # of each map parameter (active and inactive apart) and of the
         # phase's output, and log the phase that shows them. One host
@@ -379,7 +377,9 @@ class SLAM:
         self.iteration_count = 0
         self.median_depth = 1.0
         self.generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
-        self.timer = PhaseTimer()
+        # the program's spans and counters; the sequence id is the rank
+        # under a mesh
+        self.timer = PhaseTimer(seq=0 if mesh is None else torch.distributed.get_rank())
         self.frames_processed = 0
         self._cams: Dict[int, Camera] = {}
         # prune visibility: the mapping run's final-iteration visibility
@@ -394,7 +394,11 @@ class SLAM:
 
     def _phase_sync(self) -> None:
         if self.synced_timers and self.device.type == "cuda":
+            # the measurement's own wait, a span apart from the program's
+            # `sync` reads
+            self.timer.tic("phase_sync")
             torch.cuda.synchronize(self.device)
+            self.timer.toc("phase_sync")
 
     def _run_mapping(self, window_slots: List[int], n_iters: int, mcfg: MappingConfig):
         n_cams = mcfg.window_size + mcfg.n_random
@@ -432,6 +436,7 @@ class SLAM:
             "exposure_a": float(packed[24]),
             "exposure_b": float(packed[25]),
             "static_mask": static,
+            "seq": self.timer.seq,
         }
 
     @staticmethod
@@ -442,7 +447,10 @@ class SLAM:
         ])
 
     def _record_frame(self, idx: int, cam: Camera) -> None:
-        self._store_frame_record(idx, self._pose_record(cam).cpu().numpy())
+        rec = self._pose_record(cam)
+        with sync():
+            rec = rec.cpu().numpy()
+        self._store_frame_record(idx, rec)
 
     def _mono_depth_for(self, image, depth, mono) -> torch.Tensor:
         """The frame's mono depth: from the depth prior where there is one
@@ -466,12 +474,12 @@ class SLAM:
     def _build_camera(self, idx: int, sample=None) -> Camera:
         image, depth, pose, mono = self.dataset[idx] if sample is None else sample
         f32 = dict(dtype=torch.float32, device=self.device)
-        cam = Camera.create(
-            idx, torch.as_tensor(image, **f32), self.intr,
-            gt_R=torch.as_tensor(np.asarray(pose[:3, :3]), **f32),
-            gt_T=torch.as_tensor(np.asarray(pose[:3, 3]), **f32),
-            depth=None if depth is None else torch.as_tensor(depth, **f32),
-        )
+        with sync():  # the frame's host arrays (the ground-truth pose) onto the device
+            image_d = torch.as_tensor(image, **f32)
+            gt_R = torch.as_tensor(np.asarray(pose[:3, :3]), **f32)
+            gt_T = torch.as_tensor(np.asarray(pose[:3, 3]), **f32)
+            depth_d = None if depth is None else torch.as_tensor(depth, **f32)
+        cam = Camera.create(idx, image_d, self.intr, gt_R=gt_R, gt_T=gt_T, depth=depth_d)
         cam = cam.replace(
             mono_depth=self._mono_depth_for(image, depth, mono),
             grad_mask=compute_grad_mask(
@@ -481,14 +489,18 @@ class SLAM:
             ),
         )
         if self.masker is not None:
-            # a masker with its own host-side images (IntervalMasker with an
-            # image_provider) skips the frame's transfer to the host
-            img_np = (None if getattr(self.masker, "provides_images", False)
-                      else cam.image.cpu().numpy())
-            static = np.asarray(self.masker.get_static_mask(img_np, frame_idx=idx), bool)
-            self._static_np = {idx: static}
-            cam = cam.replace(static_mask=torch.as_tensor(static, device=self.device),
-                              has_static_mask=True)
+            with span("mask"):
+                # a masker with its own host-side images (IntervalMasker with
+                # an image_provider) skips the frame's transfer to the host
+                img_np = None
+                if not getattr(self.masker, "provides_images", False):
+                    with sync():
+                        img_np = cam.image.cpu().numpy()
+                static = np.asarray(self.masker.get_static_mask(img_np, frame_idx=idx), bool)
+                self._static_np = {idx: static}
+                with sync():
+                    static_dev = torch.as_tensor(static, device=self.device)
+                cam = cam.replace(static_mask=static_dev, has_static_mask=True)
         return cam
 
     def _map_scale_estimate(self) -> float:
@@ -515,10 +527,14 @@ class SLAM:
         """Record median(rendered depth / GT depth) at a new keyframe."""
         rd, gd = render_depth, cam.depth
         ok = (rd > 0.1) & (gd > 0.1) & torch.isfinite(rd) & torch.isfinite(gd)
-        ratio = torch.sort((rd / torch.clamp(gd, min=1e-6))[ok]).values
+        ratio = rd / torch.clamp(gd, min=1e-6)
+        with sync():  # the masked pixels' count
+            ratio = ratio[ok]
+        ratio = torch.sort(ratio).values
         n = ratio.numel()
         med = 0.5 * (ratio[(n - 1) // 2] + ratio[n // 2]) if n else torch.tensor(float("nan"))
-        med, n = float(med), int(n)
+        with sync():
+            med = float(med)
         if n >= 100 and np.isfinite(med):
             self._map_scale_obs = med
             self._scale_history.append((int(cam.uid), med))
@@ -531,9 +547,9 @@ class SLAM:
             last_cam = self._cams.get(self.current_window[0])
             seed = self.pose_prior(cam, last_cam, self)
             if seed is not None:
-                R, T = seed
-                return cam.update_RT(torch.as_tensor(np.asarray(R), **f32),
-                                     torch.as_tensor(np.asarray(T), **f32))
+                with sync():
+                    R, T = (torch.as_tensor(np.asarray(x), **f32) for x in seed)
+                return cam.update_RT(R, T)
         mode = self.pose_seed_mode
         if mode == "gt":
             return cam.update_RT(cam.R_gt, cam.T_gt)
@@ -544,8 +560,9 @@ class SLAM:
             kf_idx = self.current_window[0] if self.current_window else 0
             kf = self.frames.get(kf_idx)
             if kf is not None:
-                R_gt = cam.R_gt.cpu().numpy().astype(np.float64)
-                T_gt = cam.T_gt.cpu().numpy().astype(np.float64)
+                with sync():
+                    R_gt = cam.R_gt.cpu().numpy().astype(np.float64)
+                    T_gt = cam.T_gt.cpu().numpy().astype(np.float64)
                 R_rel = R_gt @ np.asarray(kf["R_gt"]).T
                 T_rel = T_gt - R_rel @ np.asarray(kf["T_gt"])
                 T_rel = self._map_scale_estimate() * T_rel
@@ -562,7 +579,9 @@ class SLAM:
                 Rn, Tn = Rn.numpy(), Tn.numpy()
                 R_seed = Rn @ np.asarray(kf["R"])
                 T_seed = Rn @ np.asarray(kf["T"]) + Tn
-                return cam.update_RT(torch.as_tensor(R_seed, **f32), torch.as_tensor(T_seed, **f32))
+                with sync():
+                    R_seed, T_seed = torch.as_tensor(R_seed, **f32), torch.as_tensor(T_seed, **f32)
+                return cam.update_RT(R_seed, T_seed)
         prev = self.frames.get(idx - 1)
         if prev is None:
             return cam
@@ -573,8 +592,12 @@ class SLAM:
             T2 = np.eye(4)
             T2[:3, :3], T2[:3, 3] = p2["R"], p2["T"]
             seed = T1 @ np.linalg.inv(T2) @ T1
-            return cam.update_RT(torch.as_tensor(seed[:3, :3], **f32), torch.as_tensor(seed[:3, 3], **f32))
-        return cam.update_RT(torch.as_tensor(prev["R"], **f32), torch.as_tensor(prev["T"], **f32))
+            R, T = seed[:3, :3], seed[:3, 3]
+        else:
+            R, T = prev["R"], prev["T"]
+        with sync():
+            R, T = torch.as_tensor(R, **f32), torch.as_tensor(T, **f32)
+        return cam.update_RT(R, T)
 
     # ----------------------------------------------------------- keyframe add
 
@@ -635,7 +658,8 @@ class SLAM:
             min_accurate_pixels_ratio=dc.get("min_accurate_pixels_ratio", 0.01),
             remedy_fn=remedy_fn,
         )
-        scale = float(scale)
+        with sync():
+            scale = float(scale)
         if self.mono_scale_anchor:
             # clamp the mono->render alignment scale to a band around the
             # run's initial scale (the monocular gauge otherwise walks)
@@ -782,13 +806,15 @@ class SLAM:
     def _backend_keyframe(self, idx: int, depth) -> None:
         cam = self._cams[idx]
         self.timer.tic("kf_seed")
-        self._ensure_capacity(self.pcd_downsample)
+        with span("seed.capacity"):
+            self._ensure_capacity(self.pcd_downsample)
         self._cached_num_active = None
-        gm.seed_from_depth(
-            self.gmap, cam, depth, self.intr, kf_id=idx, downsample=self.pcd_downsample,
-            point_size=self.point_size, adaptive_pointsize=self.adaptive_pointsize,
-            opt_state=self.opt_state,
-        )
+        with span("seed.points"):
+            gm.seed_from_depth(
+                self.gmap, cam, depth, self.intr, kf_id=idx, downsample=self.pcd_downsample,
+                point_size=self.point_size, adaptive_pointsize=self.adaptive_pointsize,
+                opt_state=self.opt_state,
+            )
         self._phase_sync()
         self._nan_scan(f"kf_seed[{idx}]", depth)
         self.timer.toc("kf_seed")
@@ -814,12 +840,14 @@ class SLAM:
         self.timer.toc("kf_mapping")
 
         self.timer.tic("kf_prune")
-        occ, self.initialized = self._prune(window_slots, res)
-        for i, kf_idx in enumerate(self.current_window):
-            self.occ_visibility[kf_idx] = occ[i]
-        self._sync_backend()
-        self._maybe_shrink()
-        self._update_bin_bucket()
+        with span("prune.covis"):
+            occ, self.initialized = self._prune(window_slots, res)
+            for i, kf_idx in enumerate(self.current_window):
+                self.occ_visibility[kf_idx] = occ[i]
+        with span("prune.state"):
+            self._sync_backend()
+            self._maybe_shrink()
+            self._update_bin_bucket()
         self._phase_sync()
         self._nan_scan(f"kf_prune[{idx}]")
         self.timer.toc("kf_prune")
@@ -869,7 +897,9 @@ class SLAM:
         packed = torch.cat([
             self.kfbuf.R.reshape(M, 9), self.kfbuf.T, self.kfbuf.exposure_ab,
             self.gmap.active.sum().to(torch.float32).expand(M, 1),
-        ], dim=1).cpu().numpy()
+        ], dim=1)
+        with sync():
+            packed = packed.cpu().numpy()
         self._cached_num_active = int(packed[0, 14])
         for kf_idx in self.current_window:
             slot = self.kf_slots[kf_idx]
@@ -908,7 +938,8 @@ class SLAM:
             self._observe_map_scale(md[0], cam)
 
     def _track(self, idx: int, cam: Camera):
-        cam = self._pose_seed(idx, cam)
+        with span("track.seed"):
+            cam = self._pose_seed(idx, cam)
         if self.mesh is not None:
             # tile rows over the ranks, all-reduced pose gradients; ahead
             # of the pyramid, as in the reference
@@ -927,8 +958,13 @@ class SLAM:
         packed = torch.cat([
             self._pose_record(cam), res.median_depth.reshape(1),
             visibility_pair_stats(curr_vis, last_vis).to(torch.float32),
-        ]).cpu().numpy()
+        ])
+        with sync():
+            packed = packed.cpu().numpy()
+        pose_out = time.perf_counter()
         self._store_frame_record(idx, packed)
+        self.frames[idx].update(iterations=int(res.iterations), pose_out=pose_out)
+        self.timer.count("track.iterations", int(res.iterations))
         self.median_depth = float(packed[26])
         self._last_track_stats = packed[27:31].astype(np.int64)
         self._last_curr_vis = curr_vis
@@ -937,7 +973,9 @@ class SLAM:
     def _make_keyframe(self, idx: int, cam: Camera, track_res, curr_vis) -> None:
         if self.current_window:
             occ_stack = torch.stack([self.occ_visibility[k] for k in self.current_window])
-            wstats = visibility_window_stats(curr_vis, occ_stack).cpu().numpy()
+            wstats = visibility_window_stats(curr_vis, occ_stack)
+            with sync():
+                wstats = wstats.cpu().numpy()
             ratios = {
                 k: int(wstats[i, 0]) / max(min(int(wstats[i, 1]), int(wstats[i, 2])), 1)
                 for i, k in enumerate(self.current_window)
@@ -959,15 +997,17 @@ class SLAM:
             self.masker.save_keyframe_overlay(cam.image, cam.static_mask, idx)
 
         self.timer.tic("kf_fusion")
-        render_depth = track_res.depth[0]
-        if self.depth_fusion_source == "median":
-            md, _mo = rasterize_median_depth(
-                self.gmap.params(), self.gmap.active, cam.R, cam.T, self.intr, self.rcfg
-            )
-            render_depth = md[0]
-        if self.pose_seed_mode == "sim_prior" or self.scale_telemetry:
-            self._observe_map_scale(render_depth, cam)
-        depth, cam = self._fused_keyframe_depth(idx, cam, render_depth, init=False)
+        with span("fusion.depth"):
+            render_depth = track_res.depth[0]
+            if self.depth_fusion_source == "median":
+                md, _mo = rasterize_median_depth(
+                    self.gmap.params(), self.gmap.active, cam.R, cam.T, self.intr, self.rcfg
+                )
+                render_depth = md[0]
+            if self.pose_seed_mode == "sim_prior" or self.scale_telemetry:
+                self._observe_map_scale(render_depth, cam)
+        with span("fusion.align"):
+            depth, cam = self._fused_keyframe_depth(idx, cam, render_depth, init=False)
         self._phase_sync()
         self.timer.toc("kf_fusion")
         self._cams[idx] = cam
@@ -976,6 +1016,17 @@ class SLAM:
         self._backend_keyframe(idx, depth)
 
     def process_frame(self, idx: int, sample=None) -> None:
+        """Track frame `idx` (or initialise on it) and, where the policy
+        says so, make it a keyframe and map; all of it inside the span
+        `frame`, with this SLAM's timer the thread's recorder."""
+        with self.timer.activate(frame=idx):
+            self.timer.tic("frame")
+            try:
+                self._process_frame(idx, sample)
+            finally:
+                self.timer.toc("frame")
+
+    def _process_frame(self, idx: int, sample) -> None:
         self.timer.tic("camera")
         cam = self._build_camera(idx, sample)
         self._phase_sync()
@@ -1146,9 +1197,12 @@ class SLAM:
         prof = torch.profiler.profile(activities=acts,
                                       on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
         prof.start()
+        # the spans as named ranges over their kernels, in this trace only
+        set_annotation(True)
         return prof
 
     def _stop_profiler(self, prof, profile_dir: str) -> None:
+        set_annotation(False)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
@@ -1159,12 +1213,14 @@ class SLAM:
         (global_ba_run), then the keyframe poses into the frame records."""
         iters = iters or self.global_ba_iters
         Log(f"Starting global BA ({iters} iters)")
-        global_ba_run(
-            self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
-            intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
-        )
-        self._sync_backend()
-        R, T = self.kfbuf.R.cpu().numpy(), self.kfbuf.T.cpu().numpy()
+        with self.timer.activate():
+            global_ba_run(
+                self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
+                intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
+            )
+            self._sync_backend()
+            with sync():
+                R, T = self.kfbuf.R.cpu().numpy(), self.kfbuf.T.cpu().numpy()
         for kf_idx, slot in self.kf_slots.items():
             self.frames[kf_idx]["R"] = R[slot]
             self.frames[kf_idx]["T"] = T[slot]
@@ -1176,11 +1232,12 @@ class SLAM:
         if features_only is None:
             features_only = self.config.get("Results", {}).get("refine_features_only", False)
         Log(f"Starting color refinement ({iters} iters{', features-only' if features_only else ''})")
-        color_refine_run(
-            self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
-            intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
-            features_only=bool(features_only),
-        )
+        with self.timer.activate():
+            color_refine_run(
+                self.gmap, self.opt_state, self.kfbuf, self.generator, iters, 0,
+                intr=self.intr, rcfg=self.rcfg_map, opt=self.opt, mcfg=self.mcfg,
+                features_only=bool(features_only),
+            )
         self._nan_scan(f"color_refine[{iters}]")
         Log("Map refinement done")
 

@@ -31,6 +31,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Camera, Intrinsics
+from ..core.log import device_constant, span, sync
 from ..core.losses import get_median_depth
 from ..ops import rasterizer as rz
 from ..ops.rasterizer import (
@@ -105,7 +106,7 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
         rgb_mask = rgb_mask & cam.static_mask
     rgb_mask = rgb_mask[None].to(torch.float32)
     gt_masked = gt * rgb_mask
-    lr_tau = torch.tensor([tcfg.lr_trans] * 3 + [tcfg.lr_rot] * 3, dtype=torch.float32, device=dev)
+    lr_tau = device_constant((tcfg.lr_trans,) * 3 + (tcfg.lr_rot,) * 3, torch.float32, dev)
     b1, b2 = tcfg.b1, tcfg.b2
 
     def step(s: dict, bins, tpj=None) -> dict:
@@ -167,50 +168,55 @@ def track_camera(params, active, cam: Camera, intr: Intrinsics, rcfg: RenderConf
     it_host, done_host, drift_host = 0, False, 0.0
     caps = None  # saturation caps; None: probe at the next rebin
     while not done_host and it_host < tcfg.max_iters:
-        # caps stale after a large pose correction since the last probe
-        if drift_host > tcfg.cap_reprobe_drift:
-            caps = None
-            s["drift_acc"] = torch.zeros((), **f32)
-        # rebin at the current pose with a pixel-radius margin
-        bins, caps = prepare_bins_with_caps(params, active, s["R"], s["T"], intr, rcfg,
-                                            tcfg.bin_margin, caps)
-        tpj = None
-        if tcfg.lin_period and isinstance(bins, PackedBins):
-            # linearise the per-row fields at this period's pose; the drift
-            # accumulates in tau_acc from zero
-            tpj, _ = pose_lin_gather(params, active, s["R"], s["T"], intr, rcfg, bins)
-            s["tau_acc"] = torch.zeros(6, **f32)
-        prev_loss = s["loss"]
-        # the period's first step is unconditional; its loss is the plateau
-        # baseline of the first period
-        s1 = step(s, bins, tpj)
-        s2 = s1
-        for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
-            s2 = step(s2, bins, tpj)
-        if tcfg.plateau_tol > 0:
-            base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
-            plateau = (
-                (base > 0)
-                & (s2["it"] >= tcfg.plateau_min_iters)
-                & (base - s2["loss"] < tcfg.plateau_tol * base)
-            )
-            s2["done"] = s2["done"] | plateau
-        s = s2
+        with span("track.bin"):
+            # caps stale after a large pose correction since the last probe
+            if drift_host > tcfg.cap_reprobe_drift:
+                caps = None
+                s["drift_acc"] = torch.zeros((), **f32)
+            # rebin at the current pose with a pixel-radius margin
+            bins, caps = prepare_bins_with_caps(params, active, s["R"], s["T"], intr, rcfg,
+                                                tcfg.bin_margin, caps)
+            tpj = None
+            if tcfg.lin_period and isinstance(bins, PackedBins):
+                # linearise the per-row fields at this period's pose; the
+                # drift accumulates in tau_acc from zero
+                tpj, _ = pose_lin_gather(params, active, s["R"], s["T"], intr, rcfg, bins)
+                s["tau_acc"] = torch.zeros(6, **f32)
+        with span("track.steps"):
+            prev_loss = s["loss"]
+            # the period's first step is unconditional; its loss is the
+            # plateau baseline of the first period
+            s1 = step(s, bins, tpj)
+            s2 = s1
+            for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
+                s2 = step(s2, bins, tpj)
+            if tcfg.plateau_tol > 0:
+                base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
+                plateau = (
+                    (base > 0)
+                    & (s2["it"] >= tcfg.plateau_min_iters)
+                    & (base - s2["loss"] < tcfg.plateau_tol * base)
+                )
+                s2["done"] = s2["done"] | plateau
+            s = s2
+            flags = torch.stack([s["it"].to(torch.float32), s["done"].to(torch.float32), s["drift_acc"]])
         # the one host read of the period
-        it_f, done_f, drift_host = torch.stack(
-            [s["it"].to(torch.float32), s["done"].to(torch.float32), s["drift_acc"]]).tolist()
+        with sync():
+            it_f, done_f, drift_host = flags.tolist()
         it_host, done_host = int(it_f), bool(done_f)
 
-    median_depth = get_median_depth(s["depth"], s["opacity"])
-    # one exact render at the converged pose for the visibility bookkeeping,
-    # dense even when the steps rendered packed: a binding budget drops
-    # deep-tile Gaussians, which would skew the keyframe policy's visibility
-    if tcfg.final_render:
-        rcfg_exact = dataclasses.replace(rcfg, use_packed=False)
-        with torch.no_grad():
-            final_nt = rasterize(params, active, s["R"], s["T"], intr, rcfg_exact).n_touched
-    else:
-        final_nt = torch.zeros(params["means"].shape[0], dtype=torch.int32, device=dev)
+    with span("track.final"):
+        median_depth = get_median_depth(s["depth"], s["opacity"])
+        # one exact render at the converged pose for the visibility
+        # bookkeeping, dense even when the steps rendered packed: a binding
+        # budget drops deep-tile Gaussians, which would skew the keyframe
+        # policy's visibility
+        if tcfg.final_render:
+            rcfg_exact = dataclasses.replace(rcfg, use_packed=False)
+            with torch.no_grad():
+                final_nt = rasterize(params, active, s["R"], s["T"], intr, rcfg_exact).n_touched
+        else:
+            final_nt = torch.zeros(params["means"].shape[0], dtype=torch.int32, device=dev)
     return TrackResult(
         R=s["R"], T=s["T"], exposure_a=s["ab"][0], exposure_b=s["ab"][1],
         image=s["image"], depth=s["depth"], opacity=s["opacity"], n_touched=final_nt,
@@ -358,7 +364,7 @@ def track_camera_sharded(params, active, cam: Camera, intr: Intrinsics, rcfg: Re
     f32 = dict(dtype=torch.float32, device=dev)
     # the packed kernels' global tile-id offset: the block's tile ids start
     # at 0, its pixel coordinates are the frame's
-    goff = torch.tensor([lay.tile0], dtype=torch.int32, device=dev)
+    goff = device_constant((lay.tile0,), torch.int32, dev)
 
     rgb_mask = (cam.image.sum(dim=0) > tcfg.rgb_boundary_threshold) & cam.grad_mask
     if tcfg.use_static_mask:
@@ -374,7 +380,7 @@ def track_camera_sharded(params, active, cam: Camera, intr: Intrinsics, rcfg: Re
     gt_masked_l = rows_of(cam.image) * mask_l
     colors, opac = rz._blend_inputs(params, active)
     bg = rz._background(rcfg, dev)
-    lr_tau = torch.tensor([tcfg.lr_trans] * 3 + [tcfg.lr_rot] * 3, **f32)
+    lr_tau = device_constant((tcfg.lr_trans,) * 3 + (tcfg.lr_rot,) * 3, torch.float32, dev)
     b1, b2 = tcfg.b1, tcfg.b2
 
     def render_local(tau, R, T, pb: rz.PackedBins, need_nt: bool):
@@ -434,32 +440,38 @@ def track_camera_sharded(params, active, cam: Camera, intr: Intrinsics, rcfg: Re
     )
     it_host, done_host = 0, False
     while not done_host and it_host < tcfg.max_iters:
-        pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
-        prev_loss = s["loss"]
-        # the period's first step is unconditional; its loss is the plateau
-        # baseline of the first period
-        s1 = step(s, pb)
-        s2 = s1
-        for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
-            s2 = step(s2, pb)
-        if tcfg.plateau_tol > 0:
-            # the losses are all-reduced: every rank takes the same exit
-            base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
-            plateau = ((base > 0) & (s2["it"] >= tcfg.plateau_min_iters)
-                       & (base - s2["loss"] < tcfg.plateau_tol * base))
-            s2["done"] = s2["done"] | plateau
-        s = s2
-        it_f, done_f = torch.stack([s["it"].to(torch.float32), s["done"].to(torch.float32)]).tolist()
+        with span("track.bin"):
+            pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
+        with span("track.steps"):
+            prev_loss = s["loss"]
+            # the period's first step is unconditional; its loss is the
+            # plateau baseline of the first period
+            s1 = step(s, pb)
+            s2 = s1
+            for _ in range(min(tcfg.rebin_every, tcfg.max_iters - it_host) - 1):
+                s2 = step(s2, pb)
+            if tcfg.plateau_tol > 0:
+                # the losses are all-reduced: every rank takes the same exit
+                base = torch.where(prev_loss > 0, prev_loss, s1["loss"])
+                plateau = ((base > 0) & (s2["it"] >= tcfg.plateau_min_iters)
+                           & (base - s2["loss"] < tcfg.plateau_tol * base))
+                s2["done"] = s2["done"] | plateau
+            s = s2
+            flags = torch.stack([s["it"].to(torch.float32), s["done"].to(torch.float32)])
+        with sync():
+            it_f, done_f = flags.tolist()
         it_host, done_host = int(it_f), bool(done_f)
 
-    # one local render at the converged pose for the visibility bookkeeping
-    with torch.no_grad():
-        pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
-        nt_local = render_local(torch.zeros(6, **f32), s["R"], s["T"], pb, True)[3]
-    n_touched = all_reduce_sum(nt_local, group)
-    # the frame from the ranks' rows: one all-gather
-    frame = all_gather_tiled(torch.cat([s["image"], s["depth"], s["opacity"]]), group, dim=1)[:, :H, :W]
-    image, depth, opacity = frame[:3], frame[3:4], frame[4:5]
+    with span("track.final"):
+        # one local render at the converged pose for the visibility
+        # bookkeeping
+        with torch.no_grad():
+            pb = shard_bins(params, active, s["R"], s["T"], intr, rcfg, lay, tcfg.bin_margin)
+            nt_local = render_local(torch.zeros(6, **f32), s["R"], s["T"], pb, True)[3]
+        n_touched = all_reduce_sum(nt_local, group)
+        # the frame from the ranks' rows: one all-gather
+        frame = all_gather_tiled(torch.cat([s["image"], s["depth"], s["opacity"]]), group, dim=1)[:, :H, :W]
+        image, depth, opacity = frame[:3], frame[3:4], frame[4:5]
     return TrackResult(
         R=s["R"], T=s["T"], exposure_a=s["ab"][0], exposure_b=s["ab"][1],
         image=image, depth=depth, opacity=opacity, n_touched=n_touched,

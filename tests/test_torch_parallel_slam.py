@@ -66,6 +66,8 @@ def test_two_rank_slam_matches_single_device(tmp_path):
                  timeout=TIMEOUT, join_timeout=2 * TIMEOUT)
     r0, r1 = outs
     assert r0["sharded"] and r1["sharded"]
+    # each rank's frame records carry its rank as their sequence id
+    assert (r0["seqs"], r1["seqs"]) == ([0], [1])
     # the replicas: every map field, pose and keyframe bit for bit
     assert r0["kf_indices"] == r1["kf_indices"]
     for k, v in r0["gmap"].items():

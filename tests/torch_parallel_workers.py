@@ -99,6 +99,7 @@ def slam_run(rank, config, out_dir):
             "n_keyframes": results["n_keyframes"], "sharded": slam.mesh is not None,
             "loaded": slam_state(loaded), "loaded_opt_count": loaded.opt_state.count,
             "opt_count": slam.opt_state.count,
+            "seqs": sorted({f["seq"] for f in slam.frames.values()}),
             "files": sorted(os.path.relpath(os.path.join(d, f), save_dir)
                             for d, _, fs in os.walk(save_dir) for f in fs)}
 
